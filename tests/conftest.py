@@ -12,6 +12,11 @@ for _p in (_ROOT, os.path.join(_ROOT, "src")):
         sys.path.insert(0, _p)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

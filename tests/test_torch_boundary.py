@@ -1,0 +1,117 @@
+"""The port's boundary: no JAX and nothing of the reference package,
+no silent CPU fallback, and ``chip_smoke.py``'s phases rehearsed on the
+CPU at a tiny size."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+_BLOCKED_RUN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+from repro_torch.accelerators import simulate
+rng = np.random.default_rng(0)
+a = rng.random((16, 16)) * (rng.random((16, 16)) < 0.3)
+b = rng.random((16, 16)) * (rng.random((16, 16)) < 0.3)
+res = simulate("gamma", {"A": a, "B": b}, {"m": 16, "k": 16, "n": 16},
+               device="cpu")
+assert res.fallback_reasons == {} and res.downgrade_events == {}
+assert np.allclose(res["Z"].to_dense(), a.T @ b)
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_simulation_runs_where_jax_and_reference_cannot_import():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_simulate_without_a_device_raises(monkeypatch):
+    from repro_torch.accelerators import simulate
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.eye(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate("gamma", {"A": a, "B": a}, {"m": 4, "k": 4, "n": 4})
+
+
+# ---------------------------------------------------------------------- #
+# chip_smoke.py
+# ---------------------------------------------------------------------- #
+@pytest.fixture
+def chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as mod
+        yield mod
+    finally:
+        sys.path.remove(str(ROOT))
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
+    recs = chip_smoke.phase_kernels("cpu", scale=1e-5, reps=1)
+    assert [r["name"] for r in recs] == ["search", "merge_path",
+                                         "multi_merge_ranks"]
+    for r in recs:
+        assert r["max_abs_err"] == 0 and r["bound_by"] == "bytes"
+        assert r["bound_ms"] > 0
+    chip_smoke.phase_oracle("cpu", n=16)
+    out = chip_smoke.phase_main(
+        "cpu", configs=[(d, 48, 150) for d, _, _ in chip_smoke.MAIN_CONFIGS])
+    # the CPU takes the plain versions: no kernel launches
+    assert out["launches"] == {"search": 0, "merge_path": 0,
+                               "multi_merge_ranks": 0}
+    assert [w["design"] for w in out["walls"]] == \
+        [c[0] for c in chip_smoke.MAIN_CONFIGS]
+
+
+def test_chip_smoke_needs_a_card(chip_smoke, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,85 @@
+"""The port's CUDA kernels on the card (marked ``cuda``; they skip
+without one).  This file imports neither JAX nor the reference, so it
+runs on a GPU machine that has only PyTorch:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.accelerators import simulate
+from repro_torch.core.trace import CollectingInstr
+from repro_torch.kernels import (KERNELS, merge_path, merge_path_plain,
+                                 multi_merge_ranks, multi_merge_ranks_plain,
+                                 search, search_plain)
+
+I32_MAX = (1 << 31) - 1
+#: duplicate-heavy, empty, hugging INT32_MAX, packed int64 near 2^62, wide
+KEY_DOMAINS = [("dense", 0, 500), ("empty", 0, 1),
+               ("i32_boundary", I32_MAX - 400, I32_MAX),
+               ("i64_packed", (1 << 62) - 2000, (1 << 62) - 1),
+               ("wide", 0, 1 << 44)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    return torch.device("cuda")
+
+
+def _keys(rng, lo, hi, n, device):
+    n = min(n, hi - lo)
+    keys = np.sort(lo + rng.choice(hi - lo, size=n, replace=False)) \
+        if n > 0 else np.zeros(0, dtype=np.int64)
+    return torch.from_numpy(keys.astype(np.int64)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dom", KEY_DOMAINS, ids=lambda d: d[0])
+def test_kernels_match_plain_on_card(cuda_device, dom):
+    _, lo, hi = dom
+    rng = np.random.default_rng(5)
+    for trial in range(3):
+        rows = [_keys(rng, lo, hi, int(rng.integers(0, 3000)), cuda_device)
+                for _ in range(3)]
+        probes = torch.from_numpy(rng.integers(lo, hi, size=5000)) \
+            .to(cuda_device)
+        assert torch.equal(search(rows[0], probes),
+                           search_plain(rows[0], probes))
+        got = merge_path(rows[0], rows[1])
+        want = merge_path_plain(rows[0], rows[1])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        cat = torch.cat(rows)
+        offs = torch.tensor(np.cumsum([0] + [len(r) for r in rows]),
+                            device=cuda_device)
+        assert torch.equal(multi_merge_ranks(cat, offs),
+                           multi_merge_ranks_plain(cat, offs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["gamma", "extensor", "outerspace",
+                                    "sigma", "matraptor"])
+def test_simulate_on_card_matches_cpu(cuda_device, design):
+    rng = np.random.default_rng(1)
+    n = 48
+    a = rng.random((n, n)) * (rng.random((n, n)) < 0.15)
+    b = rng.random((n, n)) * (rng.random((n, n)) < 0.15)
+    shapes = {"m": n, "k": n, "n": n}
+    runs = []
+    for device in (cuda_device, "cpu"):
+        for k in KERNELS:
+            k.launches = 0
+        ci = CollectingInstr()
+        res = simulate(design, {"A": a, "B": b}, shapes, device=device,
+                       extra_instr=ci)
+        runs.append((res, ci, sum(k.launches for k in KERNELS)))
+    (rc, cc, lc), (rp, cp, lp) = runs
+    assert lc > 0 and lp == 0
+    assert rc.fallback_reasons == {} and rc.downgrade_events == {}
+    for name in rp.tensors:
+        assert list(rc[name].iter_leaves()) == list(rp[name].iter_leaves())
+    assert cc.touch_counts == cp.touch_counts
+    assert cc.compute_counts == cp.compute_counts
+    assert rc.report.seconds == rp.report.seconds
