@@ -1,32 +1,49 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path on one CUDA card and check it.
+"""Run the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-Phases, each a function of a device and a size, so that a CPU test can
-rehearse them at a tiny size with the kernels' plain versions:
+Phases, each a function of a device and a size or config, so that a CPU
+test can rehearse them at a tiny size with the kernels' plain versions:
 
-  1. device   -- the card's name and power limit;
-  2. build    -- compile the CUDA kernels from ``src/repro_torch/kernels``
-                 and print nvcc's register / shared-memory lines;
-  3. kernels  -- each kernel against its plain version (exact) at the main
-                 path's shapes and on four adversarial key domains, timed
-                 beside its bytes bound and one PyTorch library call;
-  4. oracle   -- every design and union cascade at a small size on the
-                 card, against the interpreter oracle (bit-exact, with
-                 counters) and the dense reference;
-  5. main     -- ``simulate`` for the paper's designs at full
-                 widths, once with the hand kernels and once with the
-                 plain versions on the card: identical outputs, counters
-                 and Reports, no fallback, no downgrade, every kernel
-                 launched.
+  1. device      -- the card's name and power limit;
+  2. build       -- compile the CUDA kernels from ``src/repro_torch/kernels``
+                    (one nvcc per source, all at once) and print nvcc's
+                    register / shared-memory lines;
+  3. kernels     -- each seam kernel against its plain version (exact) at
+                    the simulator's shapes and on four adversarial key
+                    domains, timed beside its bytes bound and one PyTorch
+                    library call;
+  4. oracle      -- every design and union cascade at a small size on the
+                    card, against the interpreter oracle (bit-exact, with
+                    counters) and the dense reference;
+  5. main        -- ``simulate`` for the paper's designs at full widths,
+                    once with the hand kernels and once with the plain
+                    versions on the card: identical outputs, counters and
+                    Reports, no fallback, no downgrade, every seam kernel
+                    launched;
+  6. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
+                    Mamba2-1.3B prefill shape (bf16 and fp32) and the
+                    reference's test shapes, timed beside its bound;
+  7. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
+                    batch 4 x 2048 tokens, with the kernel and with stage
+                    (1) on the plain version: logits and greedy tokens
+                    agree, one kernel launch per layer;
+  8. consistency -- in fp32 at full width, the last-position logits of a
+                    512-token prefill against 512 ``serve_step`` decode
+                    steps;
+  9. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
+                    prompt tokens and 16 new tokens each.
 
-The second-to-last line lists the kernels as JSON; the last line is
+fp32 checks run with TF32 off for matmuls and cuDNN convolutions
+(``main`` sets both flags), so fp32 means fp32.  The second-to-last
+line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -41,6 +58,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import repro_torch.configs as TC  # noqa: E402
 from repro_torch.accelerators import (DEFAULT_PARAMS, REGISTRY,  # noqa: E402
                                       simulate)
 from repro_torch.accelerators.zoo import ZOO  # noqa: E402
@@ -49,15 +67,24 @@ from repro_torch.core.generator import check_against_dense  # noqa: E402
 from repro_torch.core.iteration import PythonBackend  # noqa: E402
 from repro_torch.core.trace import CollectingInstr  # noqa: E402
 from repro_torch.core.vectorized import VectorBackend  # noqa: E402
-from repro_torch.kernels import (KERNELS, build, merge_path,  # noqa: E402
-                                 merge_path_plain, multi_merge_ranks,
-                                 multi_merge_ranks_plain, search,
-                                 search_plain)
+from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
+                                 build, merge_path, merge_path_plain,
+                                 multi_merge_ranks, multi_merge_ranks_plain,
+                                 search, search_plain, ssd_chunk,
+                                 ssd_chunk_plain)
 from repro_torch.kernels.backends import TorchKernels  # noqa: E402
+from repro_torch.launch.serve import Request, Server  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.models import api  # noqa: E402
+from repro_torch.models.layers import padded_vocab  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.obs.spans import trace_session  # noqa: E402
 
-#: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
+#: H100 SXM device-memory rate and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12,      # tensor cores, bf16
+              torch.float32: 67e12}        # CUDA cores, fp32
 
 COUNTERS = ("touch_counts", "iter_counts", "compute_counts",
             "isect_steps", "isect_matches", "advances", "merges")
@@ -78,7 +105,32 @@ KERNEL_INFO = {
                    "src/repro/kernels/ops.py:72"),
     "multi_merge_ranks": ("src/repro_torch/kernels/csrc/multi_merge.cu",
                           "src/repro/kernels/ops.py:142"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:28"),
 }
+
+#: the model path: Mamba2-1.3B at its published widths
+MODEL_ARCH = "mamba2-1.3b"
+#: prefill batch x tokens (nc = 8 chunks of 256)
+PREFILL_BATCH, PREFILL_SEQ = 4, 2048
+#: (B, nc, l, H, P, N), the reference's SSD_SHAPES (tests/test_kernels.py)
+SSD_SHAPES = ((1, 2, 64, 2, 32, 16), (2, 3, 128, 4, 64, 32),
+              (1, 1, 256, 8, 64, 128))
+#: kernel vs plain ssd_chunk: both accumulate in fp32 (from the same bf16
+#: inputs on the bf16 runs), so only the summation order differs
+SSD_TOL = 2e-4
+#: bf16 prefill, kernel vs plain stage (1): the two differ by fp32
+#: reassociation, which flips single bf16 roundings (0.4%) that then
+#: carry through 48 residual layers.  The limits are twice what the
+#: kernel showed in its first full-width run on an H100 (max 0.195, mean
+#: 0.0252, 91.2% of greedy tokens equal), where stage (1) by the
+#: reference's ``_segsum`` formula, another exact fp32 rewrite, landed
+#: as far from the plain run (PERF.md); a stage (1) that is wrong moves
+#: logits by their own size.
+PREFILL_MAX_ABS, PREFILL_MEAN_ABS, PREFILL_GREEDY_SHARE = 0.4, 0.05, 0.8
+#: fp32 prefill vs decode: reassociation only (5.4e-6 on logits of
+#: magnitude 1.3 at 48 layers and width 256 on the CPU)
+CONSISTENCY_ATOL = 1e-3
 
 
 def log(*args) -> None:
@@ -423,10 +475,236 @@ def phase_main(device, configs=MAIN_CONFIGS, seed: int = 2,
     return {"launches": launches, "walls": walls}
 
 
+# ---------------------------------------------------------------------- #
+# 6-9: the Mamba2 model path
+# ---------------------------------------------------------------------- #
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def stage1(fn):
+    """Stage (1) of ``ssd`` on ``fn`` for the duration (the plain
+    version: the run the kernel's prefill is held to)."""
+    kernel = ssm_mod.ssd_chunk
+    ssm_mod.ssd_chunk = fn
+    try:
+        yield
+    finally:
+        ssm_mod.ssd_chunk = kernel
+
+
+def ssd_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
+    """(B, nc, l, H, P, N) of the ``ssd_chunk`` call of one layer's
+    prefill of ``batch`` x ``seq`` tokens."""
+    _, nh, p, n, _ = ssm_mod.dims(cfg)
+    return (batch, seq // cfg.ssm.chunk, cfg.ssm.chunk, nh, p, n)
+
+
+def ssd_bound(shape, dtype) -> Tuple[float, str]:
+    """The least time (ms) of one ``ssd_chunk`` call on an H100 and what
+    sets it: x, a, b and c read once and y (fp32) written once, against
+    the causal half (j <= i) of G once per (b, c) and of Y per head at
+    the peak rate of the input dtype."""
+    B, nc, l, H, P, N = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    nbytes = es * (B * nc * l * H * P + 2 * B * nc * l * N) \
+        + 4 * B * H * nc * l + 4 * B * nc * l * H * P
+    tri = l * (l + 1) // 2
+    flops = 2 * B * nc * tri * N + 2 * B * nc * H * tri * P
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _ssd_inputs(shape, dtype, device: torch.device, seed: int):
+    B, nc, l, H, P, N = shape
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    x = randn(B, nc, l, H, P).to(dtype)
+    a = -randn(B, H, nc, l).abs() * 0.1
+    return x, a, randn(B, nc, l, N).to(dtype), randn(B, nc, l, N).to(dtype)
+
+
+def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
+                     reps: int = 10, seed: int = 3, card: str = "") -> Dict:
+    """``ssd_chunk`` against ``ssd_chunk_plain`` (|got - want| <= SSD_TOL
+    (1 + |want|)) at the prefill shape and the reference's test shapes,
+    in bf16 and fp32; the kernel's time at the prefill shape beside its
+    bound and the plain version's.  Returns the bf16 prefill record."""
+    device = torch.device(device)
+    if prefill_shape is None:
+        prefill_shape = ssd_shape(TC.get(MODEL_ARCH), PREFILL_BATCH,
+                                  PREFILL_SEQ)
+    recs = {}
+    for shape in (prefill_shape,) + tuple(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _ssd_inputs(shape, dtype, device, seed)
+            got, want = ssd_chunk(*args), ssd_chunk_plain(*args)
+            err = (got - want).abs()
+            if got.shape != want.shape or got.dtype != torch.float32 or \
+                    not bool((err <= SSD_TOL * (1 + want.abs())).all()):
+                raise AssertionError(f"ssd_chunk != plain at {shape} "
+                                     f"{dtype}: max abs err {err.max()}")
+            err = float(err.max())
+            if shape != prefill_shape:
+                log(f"ssd_kernel {shape} {dtype}: max abs err {err:.3g}")
+                continue
+            bound, by = ssd_bound(shape, dtype)
+            recs[dtype] = {
+                "name": "ssd_chunk", "route": "cuda",
+                "source": KERNEL_INFO["ssd_chunk"][0],
+                "replaces": KERNEL_INFO["ssd_chunk"][1],
+                "launches": 0, "max_abs_err": err,
+                "ms": _time_ms(lambda: ssd_chunk(*args), device, reps),
+                "plain_ms": _time_ms(lambda: ssd_chunk_plain(*args), device,
+                                     reps),
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
+            r = recs[dtype]
+            log(f"ssd_kernel {shape} {dtype} on {card or device}: max abs "
+                f"err {err:.3g}; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
+                f" bound {bound:.4f} by {by}, {bound / r['ms']:.1%} of it)")
+            del args, got, want
+    return recs[torch.bfloat16]
+
+
+def phase_prefill(device, cfg, batch: int, seq: int, seed: int = 0,
+                  card: str = "") -> Dict:
+    """``make_prefill_step`` on ``cfg`` with seeded weights: once with
+    the kernel (launches counted from 0) and once with stage (1) on the
+    plain version, each after one warm-up.
+    Kernel and plain logits finite, within the stated tolerance of each
+    other, the same greedy token at most positions; one ``ssd_chunk``
+    launch per layer on a CUDA device."""
+    device = torch.device(device)
+    params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
+    data = api.make_batch(cfg, torch.Generator(device).manual_seed(seed + 1),
+                          batch, seq)
+    step = make_prefill_step(cfg, device)
+    step(params, data)                                  # warm-up
+    _sync(device)
+    for k in MODEL_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    logits = step(params, data)
+    _sync(device)
+    kernel_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in MODEL_KERNELS}
+    with stage1(ssd_chunk_plain):
+        step(params, data)                              # warm-up
+        _sync(device)
+        t0 = time.perf_counter()
+        plain = step(params, data)
+        _sync(device)
+        plain_s = time.perf_counter() - t0
+    want = cfg.n_layers if device.type == "cuda" else 0
+    if launches["ssd_chunk"] != want:
+        raise AssertionError(f"prefill launched ssd_chunk "
+                             f"{launches['ssd_chunk']} times, want {want}")
+    if tuple(logits.shape) != (batch, seq, padded_vocab(cfg)):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    v = cfg.vocab
+    lk, lp = logits[..., :v].float(), plain[..., :v].float()
+    del logits, plain
+    if not bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("prefill logits not finite")
+    diff = (lk - lp).abs()
+    max_abs, mean_abs = float(diff.max()), float(diff.mean())
+    greedy = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    del diff
+    scale, mean_mag = float(lk.abs().max()), float(lk.abs().mean())
+    tokens = batch * seq
+    log(f"prefill {cfg.name} {batch}x{seq} {cfg.dtype} on {card or device}: "
+        f"kernel {kernel_s:.4f} s ({tokens / kernel_s:.1f} tok/s), plain "
+        f"stage (1) {plain_s:.4f} s ({tokens / plain_s:.1f} tok/s); logits "
+        f"|max| {scale:.4g}, mean |logit| {mean_mag:.4g}; kernel vs plain: "
+        f"max abs diff {max_abs:.4g}, mean abs diff {mean_abs:.4g}, greedy "
+        f"tokens equal {greedy:.2%}; launches {launches}")
+    if max_abs > PREFILL_MAX_ABS or mean_abs > PREFILL_MEAN_ABS or \
+            greedy < PREFILL_GREEDY_SHARE:
+        raise AssertionError(
+            f"prefill kernel vs plain: max abs {max_abs:.4g} (limit "
+            f"{PREFILL_MAX_ABS}), mean abs {mean_abs:.4g} (limit "
+            f"{PREFILL_MEAN_ABS}), greedy share {greedy:.4f} (limit "
+            f"{PREFILL_GREEDY_SHARE})")
+    return {"launches": launches, "kernel_s": kernel_s, "plain_s": plain_s,
+            "max_abs": max_abs, "mean_abs": mean_abs, "greedy": greedy}
+
+
+def phase_consistency(device, cfg, seq: int = 512, seed: int = 4,
+                      card: str = "") -> float:
+    """In fp32, the last-position logits of a ``seq``-token prefill
+    against ``seq`` ``serve_step`` decode steps (the reference's
+    test_ssd_prefill_matches_decode, for the whole model).  Returns the
+    max abs difference."""
+    device = torch.device(device)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
+    toks = api.make_batch(cfg, torch.Generator(device).manual_seed(seed + 1),
+                          1, seq)["tokens"]
+    full = make_prefill_step(cfg, device)(params, {"tokens": toks})[:, -1]
+    step = make_serve_step(cfg, device)
+    cache = api.init_cache(cfg, 1, seq, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    for t in range(seq):
+        last, cache = step(params, cache, toks[:, t], torch.full((1,), t))
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    v = cfg.vocab
+    err = float((full[:, :v] - last[:, :v]).abs().max())
+    same = int(full[:, :v].argmax()) == int(last[:, :v].argmax())
+    if not err <= CONSISTENCY_ATOL or not same:
+        raise AssertionError(f"prefill vs decode: max abs {err:.4g} (limit "
+                             f"{CONSISTENCY_ATOL}), same greedy token {same}")
+    log(f"consistency {cfg.name} fp32 {seq} tokens on {card or device}: "
+        f"prefill vs {seq} decode steps max abs {err:.3g} (logits |max| "
+        f"{float(full[:, :v].abs().max()):.4g}), same greedy token; decode "
+        f"{decode_s:.3f} s ({seq / decode_s:.1f} steps/s, batch 1)")
+    return err
+
+
+def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
+                max_new: int = 16, seed: int = 0, card: str = "") -> Dict:
+    """``Server`` on ``cfg`` (its own seed-0 weights) answers
+    ``n_requests`` requests of 4-12 prompt tokens (serve.py's CLI
+    defaults); every request ends with ``max_new`` tokens."""
+    device = torch.device(device)
+    server = Server(cfg, batch=batch, device=device)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid, rng.integers(0, cfg.vocab,
+                                      size=rng.integers(4, 12)).tolist(),
+                    max_new) for rid in range(n_requests)]
+    for r in reqs:
+        server.submit(r)
+    t0 = time.perf_counter()
+    server.drain()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if not r.done or len(r.out) != max_new or \
+                not all(0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError(f"request {r.rid}: done {r.done}, "
+                                 f"{len(r.out)} tokens {r.out}")
+    prompt = sum(len(r.prompt) for r in reqs)
+    out = n_requests * max_new
+    log(f"serve {cfg.name} {batch} slots on {card or device}: {n_requests} "
+        f"requests ({prompt} prompt tokens) done, {out} new tokens in "
+        f"{wall:.3f} s ({out / wall:.1f} tok/s)")
+    return {"wall_s": wall, "new_tokens": out, "prompt_tokens": prompt}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # fp32 means fp32: no TF32 in matmuls or cuDNN convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     name, smi = phase_device()
     phase_build()
@@ -440,6 +718,13 @@ def main() -> int:
             raise AssertionError(f"{rec['name']} never launched on the "
                                  f"main path")
     log("segmented_reduce ran in host numpy (no device kernel yet)")
+    cfg = TC.get(MODEL_ARCH)
+    ssd_rec = phase_ssd_kernel("cuda", card=smi)
+    prefill = phase_prefill("cuda", cfg, PREFILL_BATCH, PREFILL_SEQ, card=smi)
+    ssd_rec["launches"] = prefill["launches"]["ssd_chunk"]
+    kernels.append(ssd_rec)
+    phase_consistency("cuda", cfg, card=smi)
+    phase_serve("cuda", cfg, card=smi)
     log(f"total {time.perf_counter() - t0:.1f} s on {smi}")
     log(smi)
     log(json.dumps({"kernels": kernels}))

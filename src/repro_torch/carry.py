@@ -5,12 +5,15 @@ through their public fields only (numpy arrays, rank names, shapes,
 leaf iteration), never by importing the reference, and rebuilt as this
 package's objects.  A test feeds one set of reference inputs through
 both simulators this way, so that they simulate exactly the same data.
+Model parameters arrive as the reference's pytree of numpy arrays and
+become this package's modules (``model_params_from_reference``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .core.csf import CSF
 from .core.fibertree import Fiber, FTensor
@@ -54,6 +57,68 @@ def ftensor_from_leaves(name: str, ranks: Sequence[str],
             node = node.get_or_create(c, Fiber)
         node.insert(path[-1], val)
     return out
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def tensor_from_array(arr: Any) -> torch.Tensor:
+    """A numpy array as a tensor, bit for bit.  bfloat16 arrives as
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: it is
+    viewed as 16-bit integers and those as ``torch.bfloat16``."""
+    arr = np.array(arr)                       # a writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).view(np.int16)) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def model_params_from_reference(tree: Dict[str, Any], cfg,
+                                device=None) -> torch.nn.Module:
+    """The reference's model parameter pytree, given as numpy arrays, as
+    this package's ``Mamba2LM`` on ``device`` (the CPU by default).
+
+    ``tree["blocks"]`` is a list of per-layer trees (``scan_layers=False``)
+    or one tree of arrays stacked over the layers (``scan_layers=True``,
+    built by ``jax.vmap``).  Every parameter must be present with the
+    port's shape and dtype; values are copied bit for bit."""
+    from .models import api
+
+    blocks = tree["blocks"]
+    if isinstance(blocks, dict):
+        stacked = _flatten(blocks)
+        blocks = [{k: v[i] for k, v in stacked.items()}
+                  for i in range(cfg.n_layers)]
+    else:
+        blocks = [_flatten(b) for b in blocks]
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
+    src = _flatten({"embed": tree["embed"], "ln_f": tree["ln_f"]})
+    for i, blk in enumerate(blocks):
+        src.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+
+    model = api._mod(cfg).Mamba2LM(cfg, None, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name not in src:
+                raise KeyError(f"reference tree has no {name}")
+            t = tensor_from_array(src.pop(name))
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: reference {t.dtype} "
+                                 f"{tuple(t.shape)}, port {p.dtype} "
+                                 f"{tuple(p.shape)}")
+            p.copy_(t)
+    if src:
+        raise KeyError(f"reference parameters the port lacks: "
+                       f"{sorted(src)}")
+    return model
 
 
 def carry(obj: Any) -> Any:

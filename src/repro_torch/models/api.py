@@ -1,0 +1,61 @@
+"""Family-dispatching model API (the reference's ``models/api.py``).
+
+    init(cfg, gen, device)                      -> params (an nn.Module)
+    loss_fn(cfg, params, batch)                 -> scalar loss (forward only)
+    init_cache(cfg, batch, max_len, dtype, device) -> decode cache
+    serve_step(cfg, params, cache, token, pos)  -> (logits, cache)
+
+Batch layout: {tokens [b, s] int64, labels [b, s] int64}.  The port has
+the ``ssm`` family so far; the others raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm
+
+
+def _mod(cfg: ModelConfig):
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"repro_torch has no {cfg.family!r} models yet (only 'ssm'); "
+            f"ROADMAP.md lists the families still to port")
+    return ssm
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, device=None) -> nn.Module:
+    return _mod(cfg).init(cfg, gen, device)
+
+
+def loss_fn(cfg: ModelConfig, params: nn.Module,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return _mod(cfg).loss_fn(cfg, params, batch)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    return _mod(cfg).init_cache(cfg, batch, max_len, dtype, device)
+
+
+def serve_step(cfg: ModelConfig, params: nn.Module,
+               cache: Dict[str, torch.Tensor], token: torch.Tensor,
+               pos: torch.Tensor
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    return _mod(cfg).serve_step(cfg, params, cache, token, pos)
+
+
+def make_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
+               seq: int) -> Dict[str, torch.Tensor]:
+    """Random batch with the family's layout, on ``gen``'s device."""
+    _mod(cfg)
+    kw = dict(generator=gen, device=gen.device)
+    return {"tokens": torch.randint(0, cfg.vocab, (batch, seq), **kw),
+            "labels": torch.randint(0, cfg.vocab, (batch, seq), **kw)}
+
+
+def param_bytes(params: nn.Module) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())

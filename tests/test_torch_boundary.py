@@ -49,6 +49,21 @@ res = simulate("gamma", {"A": a, "B": b}, {"m": 16, "k": 16, "n": 16},
                device="cpu")
 assert res.fallback_reasons == {} and res.downgrade_events == {}
 assert np.allclose(res["Z"].to_dense(), a.T @ b)
+
+import torch
+import repro_torch.configs as C
+from repro_torch.launch.serve import Request, Server
+from repro_torch.launch.steps import make_prefill_step
+cfg = C.get_smoke("mamba2-1.3b")
+server = Server(cfg, batch=2, max_len=32, device="cpu")
+logits = make_prefill_step(cfg, device="cpu")(
+    server.params, {"tokens": torch.zeros(1, 32, dtype=torch.long)})
+assert logits.shape == (1, 32, 512) and bool(torch.isfinite(logits).all())
+reqs = [Request(i, [1, 2, 3 + i], 3) for i in range(3)]
+for r in reqs:
+    server.submit(r)
+server.drain()
+assert all(r.done and len(r.out) == 3 for r in reqs)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -99,6 +114,45 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
                                "multi_merge_ranks": 0}
     assert [w["design"] for w in out["walls"]] == \
         [c[0] for c in chip_smoke.MAIN_CONFIGS]
+
+
+def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):
+    """Phases 6-9 at the smoke config: the CPU takes the plain version
+    of ``ssd_chunk``, so no launches are counted."""
+    import repro_torch.configs as C
+    # the first large multithreaded torch.exp of a process can come back
+    # about 1e-4 off (MKL vector math, seen on an AMX CPU): spend it here
+    torch.exp(torch.rand(1 << 22))
+    cfg = C.get_smoke("mamba2-1.3b")
+    rec = chip_smoke.phase_ssd_kernel(
+        "cpu", prefill_shape=chip_smoke.ssd_shape(cfg, 2, 64), reps=1)
+    assert set(rec) == {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"}
+    assert rec["name"] == "ssd_chunk" and rec["max_abs_err"] == 0.0
+    assert rec["bound_ms"] > 0 and rec["library_ms"] is None
+    assert (ROOT / rec["source"]).exists()
+    out = chip_smoke.phase_prefill("cpu", cfg, 2, 64)
+    assert out["launches"] == {"ssd_chunk": 0}
+    assert out["max_abs"] == 0.0 and out["greedy"] == 1.0
+    err = chip_smoke.phase_consistency("cpu", cfg, seq=48)
+    assert err <= chip_smoke.CONSISTENCY_ATOL
+    served = chip_smoke.phase_serve("cpu", cfg, n_requests=3, batch=2,
+                                    max_new=4)
+    assert served["new_tokens"] == 12
+
+
+def test_ssd_bound_at_the_prefill_shape(chip_smoke):
+    """The bound the kernel line reports: about 208 MB at 3.35 TB/s for
+    bf16 (bytes); fp32 inputs are bound by the fp32 CUDA-core rate."""
+    import repro_torch.configs as C
+    shape = chip_smoke.ssd_shape(C.get("mamba2-1.3b"), 4, 2048)
+    assert shape == (4, 8, 256, 64, 64, 128)
+    ms, by = chip_smoke.ssd_bound(shape, torch.bfloat16)
+    assert by == "bytes" and abs(ms - 0.062) < 0.001
+    ms32, by32 = chip_smoke.ssd_bound(shape, torch.float32)
+    # the causal half of G and of Y: 8.89 GFLOP at the fp32 peak
+    assert by32 == "operations" and abs(ms32 - 0.1327) < 0.0001
 
 
 def test_chip_smoke_needs_a_card(chip_smoke, monkeypatch, capsys):

@@ -12,7 +12,8 @@ from repro_torch.accelerators import simulate
 from repro_torch.core.trace import CollectingInstr
 from repro_torch.kernels import (KERNELS, merge_path, merge_path_plain,
                                  multi_merge_ranks, multi_merge_ranks_plain,
-                                 search, search_plain)
+                                 search, search_plain, ssd_chunk,
+                                 ssd_chunk_plain)
 
 I32_MAX = (1 << 31) - 1
 #: duplicate-heavy, empty, hugging INT32_MAX, packed int64 near 2^62, wide
@@ -83,3 +84,49 @@ def test_simulate_on_card_matches_cpu(cuda_device, design):
     assert cc.touch_counts == cp.touch_counts
     assert cc.compute_counts == cp.compute_counts
     assert rc.report.seconds == rp.report.seconds
+
+
+#: (B, nc, l, H, P, N): ragged row tiles (l 16, 100), the reference's
+#: test shapes, head groups that do not divide H, P above one tile
+SSD_CASES = [(1, 2, 16, 16, 16, 16), (2, 1, 100, 3, 24, 40),
+             (1, 2, 64, 2, 32, 16), (2, 3, 128, 4, 64, 32),
+             (1, 1, 256, 8, 64, 128), (1, 2, 512, 9, 96, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssd_chunk_matches_plain_on_card(cuda_device, shape, dtype):
+    """Both accumulate in fp32 from the same inputs: rtol = atol = 2e-4."""
+    B, nc, l, H, P, N = shape
+    gen = torch.Generator(cuda_device).manual_seed(3)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    x = randn(B, nc, l, H, P).to(dtype)
+    a = -randn(B, H, nc, l).abs() * 0.1
+    b, c = randn(B, nc, l, N).to(dtype), randn(B, nc, l, N).to(dtype)
+    before = ssd_chunk.launches
+    got = ssd_chunk(x, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    torch.testing.assert_close(got, ssd_chunk_plain(x, a, b, c),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_smoke_prefill_on_card_launches_the_kernel(cuda_device):
+    import repro_torch.configs as C
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import api
+    cfg = C.get_smoke("mamba2-1.3b")
+    params = api.init(cfg, torch.Generator(cuda_device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda_device)
+    ssd_chunk.launches = 0
+    logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == cfg.n_layers
+    assert logits.shape == (2, 64, 512)
+    assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
