@@ -33,7 +33,23 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     512-token prefill against 512 ``serve_step`` decode
                     steps;
   9. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
-                    prompt tokens and 16 new tokens each.
+                    prompt tokens and 16 new tokens each;
+ 10. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
+                    at the Qwen2-7B prefill shape and the reference's test
+                    shapes (fp32 and bf16, causal and not, a ragged KV
+                    tail), timed beside its bound and SDPA;
+ 11. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
+                    the reference's test shapes and an 8192 x 8192 A at 30%
+                    tile density, timed beside its bound and a dense
+                    ``torch.matmul``;
+ 12. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
+                    at the reference bench's shapes against its oracle (the
+                    path that launches ``block_sparse_matmul``);
+ 13. dense_prefill -- phase 7 for Qwen2-7B at full width: one
+                    ``flash_attention`` launch per layer, and the same
+                    prefill with ``mha`` on the plain version;
+ 14. dense_consistency -- phase 8 for Qwen2-7B, 256 tokens;
+ 15. dense_serve  -- phase 9 for Qwen2-7B.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -67,16 +83,21 @@ from repro_torch.core.generator import check_against_dense  # noqa: E402
 from repro_torch.core.iteration import PythonBackend  # noqa: E402
 from repro_torch.core.trace import CollectingInstr  # noqa: E402
 from repro_torch.core.vectorized import VectorBackend  # noqa: E402
+from repro_torch.bench import kernels_bench  # noqa: E402
 from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
-                                 build, merge_path, merge_path_plain,
-                                 multi_merge_ranks, multi_merge_ranks_plain,
-                                 search, search_plain, ssd_chunk,
-                                 ssd_chunk_plain)
+                                 block_sparse_matmul,
+                                 block_sparse_matmul_plain, build,
+                                 compact_tiles, flash_attention,
+                                 flash_attention_plain, merge_path,
+                                 merge_path_plain, multi_merge_ranks,
+                                 multi_merge_ranks_plain, search,
+                                 search_plain, ssd_chunk, ssd_chunk_plain)
 from repro_torch.kernels.backends import TorchKernels  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.obs.spans import trace_session  # noqa: E402
@@ -107,6 +128,11 @@ KERNEL_INFO = {
                           "src/repro/kernels/ops.py:142"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk.py:28"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:34"),
+    "block_sparse_matmul": (
+        "src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
+        "src/repro/kernels/block_sparse_matmul.py:44"),
 }
 
 #: the model path: Mamba2-1.3B at its published widths
@@ -131,6 +157,44 @@ PREFILL_MAX_ABS, PREFILL_MEAN_ABS, PREFILL_GREEDY_SHARE = 0.4, 0.05, 0.8
 #: fp32 prefill vs decode: reassociation only (5.4e-6 on logits of
 #: magnitude 1.3 at 48 layers and width 256 on the CPU)
 CONSISTENCY_ATOL = 1e-3
+
+#: the dense model path: Qwen2-7B at its published widths
+DENSE_ARCH = "qwen2-7b"
+#: fp32 prefill vs decode steps for the dense model
+DENSE_CONSISTENCY_SEQ = 256
+#: (b, h, hkv, sq, sk, d), the reference's ATTN_SHAPES
+#: (tests/test_kernels.py), run causal and not
+ATTN_SHAPES = ((1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
+               (1, 8, 1, 128, 256, 32), (2, 2, 2, 64, 192, 128))
+#: the reference's ragged-tail case, non-causal (sk below one key tile)
+ATTN_RAGGED = (1, 1, 1, 64, 40, 32)
+#: kernel vs plain flash attention: both take fp32 scores, softmax and
+#: products from the same inputs, so fp32 differs by summation order only
+#: (the reference test's 2e-6, with headroom for another order) and bf16
+#: by one rounding of the output (the reference test's 2e-2)
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: (M, K, N, bm, bk, bn, tile density): the reference's BSMM_SHAPES (the
+#: last with an empty A) and its bench's case
+BSMM_SHAPES = ((128, 128, 128, 64, 64, 64, 0.5),
+               (256, 128, 192, 64, 64, 64, 0.3),
+               (256, 256, 64, 128, 128, 64, 0.2),
+               (128, 256, 128, 64, 128, 128, 0.0),
+               (256, 256, 128, 64, 64, 64, 0.4))
+#: the card-sized case: about 1,230 of 4,096 128 x 128 tiles, B fp32
+BSMM_CARD = (8192, 8192, 1024, 128, 128, 128, 0.3)
+#: kernel vs plain block-sparse matmul: the same fp32 products summed in
+#: another order, |err| <= BSMM_RTOL sqrt(K) max |Z|
+BSMM_RTOL = 1e-4
+#: bf16 Qwen2-7B prefill, kernel vs plain attention: both keep scores,
+#: softmax and PV in fp32, so they differ by fp32 reassociation, which
+#: flips single bf16 roundings of the attention output that then carry
+#: through 28 residual layers, as ``ssd_chunk``'s did through 48.  The
+#: limits are twice what the kernel showed in its first full-width run on
+#: an H100 (max 0.125, mean 0.01557 on logits up to 7.2, 4.33% of greedy
+#: tokens different; PERF.md); a wrong attention moves logits by their
+#: own size.
+DENSE_PREFILL_MAX_ABS, DENSE_PREFILL_MEAN_ABS, DENSE_PREFILL_GREEDY_SHARE = \
+    0.25, 0.032, 0.91
 
 
 def log(*args) -> None:
@@ -483,16 +547,30 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize()
 
 
+#: per family, the kernel a prefill launches once per layer: the model
+#: module that calls it, the kernel's name there, its plain version, and
+#: the limits (max abs, mean abs, greedy-token share) that hold the
+#: kernel's bf16 logits to the plain version's
+PREFILL_KERNELS = {
+    "ssm": (ssm_mod, "ssd_chunk", ssd_chunk_plain,
+            (PREFILL_MAX_ABS, PREFILL_MEAN_ABS, PREFILL_GREEDY_SHARE)),
+    "dense": (layers_mod, "flash_attention", flash_attention_plain,
+              (DENSE_PREFILL_MAX_ABS, DENSE_PREFILL_MEAN_ABS,
+               DENSE_PREFILL_GREEDY_SHARE)),
+}
+
+
 @contextlib.contextmanager
-def stage1(fn):
-    """Stage (1) of ``ssd`` on ``fn`` for the duration (the plain
-    version: the run the kernel's prefill is held to)."""
-    kernel = ssm_mod.ssd_chunk
-    ssm_mod.ssd_chunk = fn
+def plain_kernel(family: str):
+    """The family's prefill kernel replaced by its plain version for the
+    duration (the run the kernel's prefill is held to)."""
+    module, name, plain, _ = PREFILL_KERNELS[family]
+    kernel = getattr(module, name)
+    setattr(module, name, plain)
     try:
         yield
     finally:
-        ssm_mod.ssd_chunk = kernel
+        setattr(module, name, kernel)
 
 
 def ssd_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
@@ -576,12 +654,14 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
 def phase_prefill(device, cfg, batch: int, seq: int, seed: int = 0,
                   card: str = "") -> Dict:
     """``make_prefill_step`` on ``cfg`` with seeded weights: once with
-    the kernel (launches counted from 0) and once with stage (1) on the
-    plain version, each after one warm-up.
+    the family's kernel (``PREFILL_KERNELS``; every model kernel's count
+    set to 0 just before) and once with that kernel on its plain
+    version, each after one warm-up.
     Kernel and plain logits finite, within the stated tolerance of each
-    other, the same greedy token at most positions; one ``ssd_chunk``
-    launch per layer on a CUDA device."""
+    other, the same greedy token at most positions; one kernel launch
+    per layer on a CUDA device."""
     device = torch.device(device)
+    module, name, _, limits = PREFILL_KERNELS[cfg.family]
     params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
     data = api.make_batch(cfg, torch.Generator(device).manual_seed(seed + 1),
                           batch, seq)
@@ -594,18 +674,19 @@ def phase_prefill(device, cfg, batch: int, seq: int, seed: int = 0,
     logits = step(params, data)
     _sync(device)
     kernel_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in MODEL_KERNELS}
-    with stage1(ssd_chunk_plain):
+    launches = {name: getattr(module, name).launches}
+    with plain_kernel(cfg.family):
         step(params, data)                              # warm-up
         _sync(device)
         t0 = time.perf_counter()
         plain = step(params, data)
         _sync(device)
         plain_s = time.perf_counter() - t0
+    del params
     want = cfg.n_layers if device.type == "cuda" else 0
-    if launches["ssd_chunk"] != want:
-        raise AssertionError(f"prefill launched ssd_chunk "
-                             f"{launches['ssd_chunk']} times, want {want}")
+    if launches[name] != want:
+        raise AssertionError(f"prefill launched {name} {launches[name]} "
+                             f"times, want {want}")
     if tuple(logits.shape) != (batch, seq, padded_vocab(cfg)):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
     v = cfg.vocab
@@ -621,17 +702,16 @@ def phase_prefill(device, cfg, batch: int, seq: int, seed: int = 0,
     tokens = batch * seq
     log(f"prefill {cfg.name} {batch}x{seq} {cfg.dtype} on {card or device}: "
         f"kernel {kernel_s:.4f} s ({tokens / kernel_s:.1f} tok/s), plain "
-        f"stage (1) {plain_s:.4f} s ({tokens / plain_s:.1f} tok/s); logits "
+        f"{name} {plain_s:.4f} s ({tokens / plain_s:.1f} tok/s); logits "
         f"|max| {scale:.4g}, mean |logit| {mean_mag:.4g}; kernel vs plain: "
         f"max abs diff {max_abs:.4g}, mean abs diff {mean_abs:.4g}, greedy "
         f"tokens equal {greedy:.2%}; launches {launches}")
-    if max_abs > PREFILL_MAX_ABS or mean_abs > PREFILL_MEAN_ABS or \
-            greedy < PREFILL_GREEDY_SHARE:
+    lim_max, lim_mean, lim_greedy = limits
+    if max_abs > lim_max or mean_abs > lim_mean or greedy < lim_greedy:
         raise AssertionError(
             f"prefill kernel vs plain: max abs {max_abs:.4g} (limit "
-            f"{PREFILL_MAX_ABS}), mean abs {mean_abs:.4g} (limit "
-            f"{PREFILL_MEAN_ABS}), greedy share {greedy:.4f} (limit "
-            f"{PREFILL_GREEDY_SHARE})")
+            f"{lim_max}), mean abs {mean_abs:.4g} (limit {lim_mean}), "
+            f"greedy share {greedy:.4f} (limit {lim_greedy})")
     return {"launches": launches, "kernel_s": kernel_s, "plain_s": plain_s,
             "max_abs": max_abs, "mean_abs": mean_abs, "greedy": greedy}
 
@@ -698,6 +778,200 @@ def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
     return {"wall_s": wall, "new_tokens": out, "prompt_tokens": prompt}
 
 
+# ---------------------------------------------------------------------- #
+# 10-12: flash attention, block-sparse matmul, the kernel bench
+# ---------------------------------------------------------------------- #
+def attn_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
+    """(b, h, hkv, sq, sk, d) of the ``flash_attention`` call of one
+    layer's prefill of ``batch`` x ``seq`` tokens."""
+    return (batch, cfg.n_heads, cfg.n_kv_heads, seq, seq, cfg.hdim)
+
+
+def flash_bound(shape, dtype, causal: bool = True) -> Tuple[float, str]:
+    """The least time (ms) of one ``flash_attention`` call on an H100 and
+    what sets it: q, k, v read once and o written once, against QK^T and
+    PV over the (query, key) pairs the mask keeps, at the peak rate of
+    the input dtype."""
+    b, h, hkv, sq, sk, d = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
+    if causal:      # query i keeps keys 0..min(i, sk - 1)
+        n = min(sq, sk)
+        pairs = n * (n + 1) // 2 + max(sq - sk, 0) * sk
+    else:
+        pairs = sq * sk
+    flops = 4 * b * h * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _attn_inputs(shape, dtype, device: torch.device, seed: int):
+    b, h, hkv, sq, sk, d = shape
+    gen = torch.Generator(device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=device).to(dtype)
+                 for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+
+
+def phase_flash_kernel(device, prefill_shape=None, shapes=ATTN_SHAPES,
+                       reps: int = 10, seed: int = 5, card: str = "") -> Dict:
+    """``flash_attention`` against ``flash_attention_plain`` within
+    FLASH_ATOL at the Qwen2-7B prefill shape and the reference's test
+    shapes, fp32 and bf16, causal and not, and on the ragged-tail case;
+    at the prefill shape (causal, both dtypes) the kernel's time beside
+    its bound, the plain version's and SDPA's.  Returns the bf16 causal
+    prefill record."""
+    device = torch.device(device)
+    if prefill_shape is None:
+        prefill_shape = attn_shape(TC.get(DENSE_ARCH), PREFILL_BATCH,
+                                   PREFILL_SEQ)
+    cases = [(s, c) for s in (prefill_shape,) + tuple(shapes)
+             for c in (True, False)] + [(ATTN_RAGGED, False)]
+    rec = None
+    for shape, causal in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _attn_inputs(shape, dtype, device, seed)
+            got = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            err = (got.float() - want.float()).abs()
+            if got.shape != want.shape or got.dtype != dtype or \
+                    not bool(torch.isfinite(got).all()) or \
+                    not float(err.max()) <= FLASH_ATOL[dtype]:
+                raise AssertionError(f"flash_attention != plain at {shape} "
+                                     f"{dtype} causal={causal}: max abs "
+                                     f"err {float(err.max())}")
+            err = float(err.max())
+            del got, want
+            if shape != prefill_shape or not causal:
+                log(f"flash_kernel {shape} {dtype} causal={causal}: max abs "
+                    f"err {err:.3g}")
+                continue
+            bound, by = flash_bound(shape, dtype)
+            r = {"name": "flash_attention", "route": "cuda",
+                 "source": KERNEL_INFO["flash_attention"][0],
+                 "replaces": KERNEL_INFO["flash_attention"][1],
+                 "launches": 0, "max_abs_err": err,
+                 "ms": _time_ms(lambda: flash_attention(q, k, v), device,
+                                reps),
+                 "plain_ms": _time_ms(lambda: flash_attention_plain(q, k, v),
+                                      device, reps),
+                 "bound_ms": bound, "bound_by": by,
+                 "library_ms": _time_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         q, k, v, is_causal=True, enable_gqa=True),
+                     device, reps)}
+            log(f"flash_kernel {shape} {dtype} causal on {card or device}: "
+                f"max abs err {err:.3g}; {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
+                f"{bound:.4f} by {by}, {bound / r['ms']:.1%} of it)")
+            if dtype == torch.bfloat16:
+                rec = r
+            del q, k, v
+    return rec
+
+
+def bsmm_bound(n_tiles: int, bm: int, bk: int, K: int, N: int, m: int,
+               dtype) -> Tuple[float, str]:
+    """The least time (ms) of one ``block_sparse_matmul`` call over
+    ``n_tiles`` nonzero tiles: the tiles, their int32 coordinates and B
+    read once and Z (fp32) written once, against 2 bm bk N operations a
+    tile at the fp32 CUDA-core peak (the kernel's products are fp32)."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    nbytes = es * (n_tiles * bm * bk + K * N) + 8 * n_tiles + 4 * m * N
+    flops = 2 * n_tiles * bm * bk * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _bsmm_inputs(case, device: torch.device, seed: int):
+    """Seeded dense A with whole zero tiles (fp32, host) and B on the
+    device, and ``compact_tiles``' tile list on the device."""
+    M, K, N, bm, bk, _, density = case
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((M, K), dtype=np.float32)
+    a *= np.kron(rng.random((M // bm, K // bk)) < density,
+                 np.ones((bm, bk), np.float32))
+    b = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32)) \
+        .to(device)
+    tiles, rows, cols = (torch.from_numpy(x).to(device)
+                         for x in compact_tiles(a, bm, bk))
+    return a, tiles, rows, cols, b
+
+
+def phase_bsmm_kernel(device, card_case=BSMM_CARD, shapes=BSMM_SHAPES,
+                      reps: int = 10, seed: int = 6, card: str = "") -> Dict:
+    """``block_sparse_matmul`` against ``block_sparse_matmul_plain``
+    (|err| <= BSMM_RTOL sqrt(K) max |Z|) at the reference's shapes (fp32
+    and bf16 tiles) and at ``card_case`` (fp32), there timed beside its
+    bound, the plain version's time and a dense fp32 ``torch.matmul`` of
+    the masked A (TF32 off).  Returns the card-case record."""
+    device = torch.device(device)
+    rec = None
+    for case in (card_case,) + tuple(shapes):
+        M, K, N, bm, bk, bn, _ = case
+        a, tiles, rows, cols, b = _bsmm_inputs(case, device, seed)
+        for dtype in ((torch.float32,) if case == card_case
+                      else (torch.float32, torch.bfloat16)):
+            t, bb = tiles.to(dtype), b.to(dtype)
+            got = block_sparse_matmul(t, rows, cols, bb, m=M, bn=bn)
+            want = block_sparse_matmul_plain(t, rows, cols, bb, M)
+            limit = BSMM_RTOL * K ** 0.5 * max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            if got.shape != want.shape or got.dtype != torch.float32 or \
+                    not err <= limit:
+                raise AssertionError(f"block_sparse_matmul != plain at "
+                                     f"{case} {dtype}: max abs err {err} "
+                                     f"(limit {limit})")
+            del got, want
+            if case != card_case:
+                log(f"bsmm_kernel {case} {dtype}: max abs err {err:.3g}")
+                continue
+            n_real = int(t.flatten(1).ne(0).any(1).sum())
+            bound, by = bsmm_bound(n_real, bm, bk, K, N, M, dtype)
+            a_dev = torch.from_numpy(a).to(device)
+            rec = {"name": "block_sparse_matmul", "route": "cuda",
+                   "source": KERNEL_INFO["block_sparse_matmul"][0],
+                   "replaces": KERNEL_INFO["block_sparse_matmul"][1],
+                   "launches": 0, "max_abs_err": err,
+                   "ms": _time_ms(lambda: block_sparse_matmul(
+                       t, rows, cols, bb, m=M, bn=bn), device, reps),
+                   "plain_ms": _time_ms(lambda: block_sparse_matmul_plain(
+                       t, rows, cols, bb, M), device, reps),
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": _time_ms(lambda: torch.matmul(a_dev, bb),
+                                          device, reps)}
+            log(f"bsmm_kernel {case} {dtype} on {card or device}: "
+                f"{len(t)} tiles ({n_real} nonzero), max abs err {err:.3g} "
+                f"(limit {limit:.3g}); {rec['ms']:.4f} ms (plain "
+                f"{rec['plain_ms']:.4f}, dense matmul "
+                f"{rec['library_ms']:.4f}, bound {bound:.4f} by {by}, "
+                f"{bound / rec['ms']:.1%} of it)")
+            del a_dev
+    return rec
+
+
+def phase_kernels_bench(device) -> Dict[str, int]:
+    """``kernels_bench.run`` as its CLI runs it, every kernel's count set
+    to 0 just before: each row within its oracle limit.  Returns the
+    launches of every kernel in that run."""
+    kernels = KERNELS + MODEL_KERNELS + (block_sparse_matmul,)
+    for k in kernels:
+        k.launches = 0
+    rows = kernels_bench.run(device)
+    launches = {k.__name__: k.launches for k in kernels}
+    for r in rows:
+        log(f"kernels_bench {r.name},{r.us_per_call:.1f},{r.err:.3g} "
+            f"(limit {r.limit:.3g})")
+        if not r.err <= r.limit:
+            raise AssertionError(f"kernels_bench {r.name}: err {r.err} "
+                                 f"above its limit {r.limit}")
+    log(f"kernels_bench launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -714,9 +988,6 @@ def main() -> int:
     for rec in kernels:
         rec["launches"] = main_run["launches"][rec["name"]]
         rec.pop("shapes")
-        if rec["launches"] <= 0:
-            raise AssertionError(f"{rec['name']} never launched on the "
-                                 f"main path")
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
     ssd_rec = phase_ssd_kernel("cuda", card=smi)
@@ -725,6 +996,23 @@ def main() -> int:
     kernels.append(ssd_rec)
     phase_consistency("cuda", cfg, card=smi)
     phase_serve("cuda", cfg, card=smi)
+    flash_rec = phase_flash_kernel("cuda", card=smi)
+    bsmm_rec = phase_bsmm_kernel("cuda", card=smi)
+    torch.cuda.empty_cache()
+    bsmm_rec["launches"] = phase_kernels_bench("cuda")["block_sparse_matmul"]
+    dense = TC.get(DENSE_ARCH)
+    prefill = phase_prefill("cuda", dense, PREFILL_BATCH, PREFILL_SEQ,
+                            card=smi)
+    flash_rec["launches"] = prefill["launches"]["flash_attention"]
+    kernels += [flash_rec, bsmm_rec]
+    torch.cuda.empty_cache()
+    phase_consistency("cuda", dense, seq=DENSE_CONSISTENCY_SEQ, card=smi)
+    torch.cuda.empty_cache()
+    phase_serve("cuda", dense, card=smi)
+    for rec in kernels:
+        if rec["launches"] <= 0:
+            raise AssertionError(f"{rec['name']} never launched on its "
+                                 f"path")
     log(f"total {time.perf_counter() - t0:.1f} s on {smi}")
     log(smi)
     log(json.dumps({"kernels": kernels}))

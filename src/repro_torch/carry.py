@@ -83,12 +83,15 @@ def tensor_from_array(arr: Any) -> torch.Tensor:
 def model_params_from_reference(tree: Dict[str, Any], cfg,
                                 device=None) -> torch.nn.Module:
     """The reference's model parameter pytree, given as numpy arrays, as
-    this package's ``Mamba2LM`` on ``device`` (the CPU by default).
+    this package's model of ``cfg``'s family (``Mamba2LM``,
+    ``TransformerLM``) on ``device`` (the CPU by default).
 
     ``tree["blocks"]`` is a list of per-layer trees (``scan_layers=False``)
     or one tree of arrays stacked over the layers (``scan_layers=True``,
-    built by ``jax.vmap``).  Every parameter must be present with the
-    port's shape and dtype; values are copied bit for bit."""
+    built by ``jax.vmap``).  Empty subtrees (OLMo's non-parametric norms)
+    and a missing ``head`` (tied embeddings) are absent on both sides.
+    Every parameter must be present with the port's shape and dtype;
+    values are copied bit for bit."""
     from .models import api
 
     blocks = tree["blocks"]
@@ -104,7 +107,7 @@ def model_params_from_reference(tree: Dict[str, Any], cfg,
     for i, blk in enumerate(blocks):
         src.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
 
-    model = api._mod(cfg).Mamba2LM(cfg, None, device)
+    model = api.init(cfg, None, device)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name not in src:

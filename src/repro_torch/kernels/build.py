@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 
 #: the kernel libraries: one per source file in csrc/
-SOURCES = ("search", "merge_path", "multi_merge", "ssd_chunk")
+SOURCES = ("search", "merge_path", "multi_merge", "ssd_chunk",
+           "flash_attention", "block_sparse_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

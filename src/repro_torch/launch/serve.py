@@ -1,7 +1,8 @@
 """Batched serving loop: continuous-batching decode (the reference's
 ``launch/serve.py``).
 
-    python -m repro_torch.launch.serve --arch mamba2-1.3b --requests 8
+    python -m repro_torch.launch.serve --arch qwen2-7b --requests 8
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
 
 Slot-based continuous batching: a fixed decode batch of ``--batch``
 slots; finished requests release their slot, queued requests claim it

@@ -25,7 +25,11 @@ def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
 
     def prefill_step(params: nn.Module, batch: Dict[str, torch.Tensor]):
         with torch.inference_mode():
-            return mod.forward(cfg, params, batch["tokens"].to(device))
+            tokens = batch["tokens"].to(device)
+            if cfg.family == "vlm":
+                return mod.forward(cfg, params, tokens,
+                                   extra_embeds=batch["patches"].to(device))
+            return mod.forward(cfg, params, tokens)
 
     return prefill_step
 

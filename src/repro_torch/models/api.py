@@ -5,8 +5,12 @@
     init_cache(cfg, batch, max_len, dtype, device) -> decode cache
     serve_step(cfg, params, cache, token, pos)  -> (logits, cache)
 
-Batch layout: {tokens [b, s] int64, labels [b, s] int64}.  The port has
-the ``ssm`` family so far; the others raise ``NotImplementedError``.
+Batch layout per family:
+    dense/ssm: {tokens [b, s] int64, labels [b, s] int64}
+    vlm:       + patches [b, n_patches, d_model] bf16
+
+The port has the ``dense``, ``vlm`` and ``ssm`` families so far; the
+others raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,15 +20,18 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm
+from repro_torch.models import ssm, transformer
+
+_FAMILIES = {"dense": transformer, "vlm": transformer, "ssm": ssm}
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family != "ssm":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"repro_torch has no {cfg.family!r} models yet (only 'ssm'); "
-            f"ROADMAP.md lists the families still to port")
-    return ssm
+            f"repro_torch has no {cfg.family!r} models yet (only "
+            f"{sorted(_FAMILIES)}); ROADMAP.md lists the families still "
+            f"to port")
+    return _FAMILIES[cfg.family]
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device=None) -> nn.Module:
@@ -53,8 +60,13 @@ def make_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
     """Random batch with the family's layout, on ``gen``'s device."""
     _mod(cfg)
     kw = dict(generator=gen, device=gen.device)
-    return {"tokens": torch.randint(0, cfg.vocab, (batch, seq), **kw),
-            "labels": torch.randint(0, cfg.vocab, (batch, seq), **kw)}
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), **kw),
+           "labels": torch.randint(0, cfg.vocab, (batch, seq), **kw)}
+    if cfg.family == "vlm":
+        # labels cover only the token positions
+        out["patches"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                     **kw).to(torch.bfloat16)
+    return out
 
 
 def param_bytes(params: nn.Module) -> int:

@@ -247,10 +247,14 @@ def mamba_decode(cfg: ModelConfig, pr, x: torch.Tensor,
 # ---------------------------------------------------------------------- #
 # model assembly
 # ---------------------------------------------------------------------- #
-def init(cfg: ModelConfig, gen: torch.Generator, device=None) -> Mamba2LM:
+def init(cfg: ModelConfig, gen: Optional[torch.Generator],
+         device=None) -> Mamba2LM:
     """Seeded weights from ``gen`` on ``device`` (the generator's device
-    by default; torch requires the two to match)."""
-    return Mamba2LM(cfg, gen, gen.device if device is None else device)
+    by default; torch requires the two to match).  Without a generator,
+    uninitialised weights for ``carry`` to load."""
+    if device is None and gen is not None:
+        device = gen.device
+    return Mamba2LM(cfg, gen, device)
 
 
 def block_fwd(cfg: ModelConfig, pr, x: torch.Tensor) -> torch.Tensor:

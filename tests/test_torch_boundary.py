@@ -64,6 +64,14 @@ for r in reqs:
     server.submit(r)
 server.drain()
 assert all(r.done and len(r.out) == 3 for r in reqs)
+
+from repro_torch.bench import kernels_bench
+dense = C.get_smoke("qwen2-7b")
+server = Server(dense, batch=2, max_len=32, device="cpu")
+logits = make_prefill_step(dense, device="cpu")(
+    server.params, {"tokens": torch.zeros(1, 32, dtype=torch.long)})
+assert logits.shape == (1, 32, 512) and bool(torch.isfinite(logits).all())
+assert all(r.err <= r.limit for r in kernels_bench.run("cpu", reps=1))
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -153,6 +161,56 @@ def test_ssd_bound_at_the_prefill_shape(chip_smoke):
     ms32, by32 = chip_smoke.ssd_bound(shape, torch.float32)
     # the causal half of G and of Y: 8.89 GFLOP at the fp32 peak
     assert by32 == "operations" and abs(ms32 - 0.1327) < 0.0001
+
+
+def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
+    """Phases 10-15 at small shapes and the smoke config: the CPU takes
+    the plain versions, so no launches are counted."""
+    import repro_torch.configs as C
+    cfg = C.get_smoke("qwen2-7b")
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    flash = chip_smoke.phase_flash_kernel(
+        "cpu", prefill_shape=chip_smoke.attn_shape(cfg, 2, 64),
+        shapes=chip_smoke.ATTN_SHAPES[:1], reps=1)
+    bsmm = chip_smoke.phase_bsmm_kernel(
+        "cpu", card_case=(256, 256, 64, 64, 64, 64, 0.3),
+        shapes=chip_smoke.BSMM_SHAPES[-2:], reps=1)
+    for rec, name in ((flash, "flash_attention"),
+                      (bsmm, "block_sparse_matmul")):
+        assert set(rec) == keys and rec["name"] == name
+        assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
+        assert rec["library_ms"] > 0 and (ROOT / rec["source"]).exists()
+    launches = chip_smoke.phase_kernels_bench("cpu")
+    assert set(launches.values()) == {0}
+    out = chip_smoke.phase_prefill("cpu", cfg, 2, 64)
+    assert out["launches"] == {"flash_attention": 0}
+    assert out["max_abs"] == 0.0 and out["greedy"] == 1.0
+    err = chip_smoke.phase_consistency("cpu", cfg, seq=24)
+    assert err <= chip_smoke.CONSISTENCY_ATOL
+    served = chip_smoke.phase_serve("cpu", cfg, n_requests=3, batch=2,
+                                    max_new=4)
+    assert served["new_tokens"] == 12
+
+
+def test_dense_bounds_at_the_card_shapes(chip_smoke):
+    """The bounds the kernel line reports: flash attention at the
+    Qwen2-7B prefill shape, about 120 GFLOP at the bf16 peak against
+    134 MB; the card-sized block-sparse case, 2 bm bk N a tile at the
+    fp32 peak against about 147 MB."""
+    import repro_torch.configs as C
+    shape = chip_smoke.attn_shape(C.get("qwen2-7b"), 4, 2048)
+    assert shape == (4, 28, 4, 2048, 2048, 128)
+    ms, by = chip_smoke.flash_bound(shape, torch.bfloat16)
+    assert by == "operations" and abs(ms - 0.1217) < 0.0001
+    full, _ = chip_smoke.flash_bound(shape, torch.bfloat16, causal=False)
+    assert abs(full / ms - 2 * 2048 / 2049) < 1e-9
+    ms, by = chip_smoke.bsmm_bound(1229, 128, 128, 8192, 1024, 8192,
+                                   torch.float32)
+    assert by == "operations" and abs(ms - 0.6155) < 0.0001
+    nbytes = 4 * (1229 * 128 * 128 + 8192 * 1024) + 8 * 1229 \
+        + 4 * 8192 * 1024
+    assert abs(nbytes / 1e6 - 147.7) < 0.1
 
 
 def test_chip_smoke_needs_a_card(chip_smoke, monkeypatch, capsys):

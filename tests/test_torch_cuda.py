@@ -10,7 +10,10 @@ import torch
 
 from repro_torch.accelerators import simulate
 from repro_torch.core.trace import CollectingInstr
-from repro_torch.kernels import (KERNELS, merge_path, merge_path_plain,
+from repro_torch.kernels import (KERNELS, block_sparse_matmul,
+                                 block_sparse_matmul_plain, compact_tiles,
+                                 flash_attention, flash_attention_plain,
+                                 merge_path, merge_path_plain,
                                  multi_merge_ranks, multi_merge_ranks_plain,
                                  search, search_plain, ssd_chunk,
                                  ssd_chunk_plain)
@@ -128,5 +131,112 @@ def test_smoke_prefill_on_card_launches_the_kernel(cuda_device):
     logits = make_prefill_step(cfg)(params, {"tokens": tokens})
     torch.cuda.synchronize()
     assert ssd_chunk.launches == cfg.n_layers
+    assert logits.shape == (2, 64, 512)
+    assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+
+
+#: (b, h, hkv, sq, sk, d): the reference's ATTN_SHAPES, a ragged GQA-7
+#: case at Qwen2-7B's head dim, and sq > sk
+ATTN_CASES = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
+              (1, 8, 1, 128, 256, 32), (2, 2, 2, 64, 192, 128),
+              (1, 28, 4, 300, 300, 128), (2, 4, 1, 200, 70, 64)]
+#: kernel vs plain: fp32 sums in another order (fp32); one bf16 rounding
+#: of the output apart (bf16), the reference test's 2e-2
+ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(shape, dtype, device, seed=0):
+    b, h, hkv, sq, sk, d = shape
+    gen = torch.Generator(device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=device).to(dtype)
+                 for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype,
+                                               causal):
+    q, k, v = _qkv(shape, dtype, cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, causal).float(),
+                               rtol=0, atol=ATTN_ATOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views_on_card(cuda_device):
+    """[b, s, h, d] projections as [b, h, s, d] views, as ``mha`` passes
+    them: read in place, output in q's layout, values as contiguous."""
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    q = torch.randn(2, 100, 6, 64, generator=gen, device=cuda_device)
+    kv = torch.randn(2, 100, 2, 1, 64, generator=gen, device=cuda_device)
+    k = kv[..., 0, :].transpose(1, 2)
+    v = (kv[..., 0, :] * 0.5).transpose(1, 2)
+    got = flash_attention(q.transpose(1, 2), k, v)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention(q.transpose(1, 2).contiguous(), k.contiguous(),
+                           v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(
+        got, flash_attention_plain(q.transpose(1, 2), k, v),
+        rtol=0, atol=2e-5)
+
+
+#: (M, K, N, bm, bk, bn, tile density): the reference's BSMM_SHAPES (the
+#: last with an empty A), tile-rows of three 64-row CTAs and a ragged N
+BSMM_CASES = [(128, 128, 128, 64, 64, 64, 0.5),
+              (256, 128, 192, 64, 64, 64, 0.3),
+              (256, 256, 64, 128, 128, 64, 0.2),
+              (128, 256, 128, 64, 128, 128, 0.0),
+              (384, 160, 100, 192, 32, 128, 0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BSMM_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_block_sparse_matmul_matches_plain_on_card(cuda_device, case, dtype):
+    """Both accumulate the same products in fp32, in another order:
+    1e-4 sqrt(K) relative to |Z|."""
+    M, K, N, bm, bk, bn, density = case
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    a *= np.kron(rng.random((M // bm, K // bk)) < density,
+                 np.ones((bm, bk), np.float32))
+    tiles, rows, cols = (torch.from_numpy(x).to(cuda_device)
+                         for x in compact_tiles(a, bm, bk))
+    tiles = tiles.to(dtype)
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)) \
+        .to(cuda_device, dtype)
+    before = block_sparse_matmul.launches
+    got = block_sparse_matmul(tiles, rows, cols, b, m=M, bn=bn)
+    torch.cuda.synchronize()
+    assert block_sparse_matmul.launches == before + 1
+    want = block_sparse_matmul_plain(tiles, rows, cols, b, M)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * K ** 0.5 * scale)
+
+
+@pytest.mark.cuda
+def test_dense_smoke_prefill_on_card_launches_flash(cuda_device):
+    import repro_torch.configs as C
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import api
+    cfg = C.get_smoke("qwen2-7b")
+    params = api.init(cfg, torch.Generator(cuda_device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda_device)
+    flash_attention.launches = 0
+    logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == cfg.n_layers
     assert logits.shape == (2, 64, 512)
     assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())

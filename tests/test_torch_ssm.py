@@ -398,7 +398,7 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
     make_prefill_step(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-moe-a2.7b",
+@pytest.mark.parametrize("arch", ["grok-1-314b", "qwen2-moe-a2.7b",
                                   "jamba-1.5-large-398b", "whisper-small"])
 def test_other_families_raise(arch):
     cfg = TC.get_smoke(arch)
