@@ -21,7 +21,8 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     once with the hand kernels and once with the plain
                     versions on the card: identical outputs, counters and
                     Reports, no fallback, no downgrade, every seam kernel
-                    launched;
+                    launched; then ``search`` replayed at the sizes of
+                    its launches there, timed beside its bound;
   6. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
                     reference's test shapes, timed beside its bound;
@@ -37,7 +38,8 @@ test can rehearse them at a tiny size with the kernels' plain versions:
  10. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
                     at the Qwen2-7B prefill shape and the reference's test
                     shapes (fp32 and bf16, causal and not, a ragged KV
-                    tail), timed beside its bound and SDPA;
+                    tail), timed beside its bound (TFLOP/s and share of
+                    it) and SDPA;
  11. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
                     the reference's test shapes and an 8192 x 8192 A at 30%
                     tile density, timed beside its bound and a dense
@@ -92,7 +94,8 @@ from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
                                  merge_path_plain, multi_merge_ranks,
                                  multi_merge_ranks_plain, search,
                                  search_plain, ssd_chunk, ssd_chunk_plain)
-from repro_torch.kernels.backends import TorchKernels  # noqa: E402
+from repro_torch.kernels.backends import (CudaKernels,  # noqa: E402
+                                          TorchKernels)
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
@@ -168,10 +171,13 @@ ATTN_SHAPES = ((1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
                (1, 8, 1, 128, 256, 32), (2, 2, 2, 64, 192, 128))
 #: the reference's ragged-tail case, non-causal (sk below one key tile)
 ATTN_RAGGED = (1, 1, 1, 64, 40, 32)
-#: kernel vs plain flash attention: both take fp32 scores, softmax and
-#: products from the same inputs, so fp32 differs by summation order only
-#: (the reference test's 2e-6, with headroom for another order) and bf16
-#: by one rounding of the output (the reference test's 2e-2)
+#: kernel vs plain flash attention: in fp32 both take fp32 scores,
+#: softmax and products from the same inputs, so they differ by summation
+#: order only (the reference test's 2e-6, with headroom for another
+#: order).  In bf16 the kernel rounds the softmax weights to bf16 for the
+#: tensor-core PV product (at most about 2^-9 of |v| per weight, as the
+#: reference model's attention rounds them) and then the output once; the
+#: plain version keeps PV in fp32: the reference test's 2e-2.
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: (M, K, N, bm, bk, bn, tile density): the reference's BSMM_SHAPES (the
 #: last with an empty A) and its bench's case
@@ -185,14 +191,15 @@ BSMM_CARD = (8192, 8192, 1024, 128, 128, 128, 0.3)
 #: kernel vs plain block-sparse matmul: the same fp32 products summed in
 #: another order, |err| <= BSMM_RTOL sqrt(K) max |Z|
 BSMM_RTOL = 1e-4
-#: bf16 Qwen2-7B prefill, kernel vs plain attention: both keep scores,
-#: softmax and PV in fp32, so they differ by fp32 reassociation, which
-#: flips single bf16 roundings of the attention output that then carry
-#: through 28 residual layers, as ``ssd_chunk``'s did through 48.  The
-#: limits are twice what the kernel showed in its first full-width run on
-#: an H100 (max 0.125, mean 0.01557 on logits up to 7.2, 4.33% of greedy
-#: tokens different; PERF.md); a wrong attention moves logits by their
-#: own size.
+#: bf16 Qwen2-7B prefill, kernel vs plain attention: both keep scores
+#: and the softmax carry in fp32; the kernel rounds the softmax weights to
+#: bf16 for its tensor-core PV product, the plain version keeps PV in
+#: fp32.  Either difference flips single bf16 roundings of the attention
+#: output that then carry through 28 residual layers, as ``ssd_chunk``'s
+#: did through 48.  The limits are twice what the first (fp32 CUDA-core)
+#: kernel showed in its first full-width run on an H100 (max 0.125, mean
+#: 0.01557 on logits up to 7.2, 4.33% of greedy tokens different;
+#: PERF.md); a wrong attention moves logits by their own size.
 DENSE_PREFILL_MAX_ABS, DENSE_PREFILL_MEAN_ABS, DENSE_PREFILL_GREEDY_SHARE = \
     0.25, 0.032, 0.91
 
@@ -496,22 +503,52 @@ def _declared(design, dense_stored):
     return out
 
 
+@contextlib.contextmanager
+def record_search_calls(calls: List[Tuple[int, int, bool]]):
+    """Appends (keys, probes, probes sorted) for every ``search`` the
+    CUDA lowering makes while open: only ``lookup_keys`` passes probes
+    unsorted."""
+    search_fn, lookup = CudaKernels._search, CudaKernels.lookup_keys
+    in_lookup = []
+
+    def recording_search(hay, probes):
+        calls.append((len(hay), len(probes), not in_lookup))
+        return search_fn(hay, probes)
+
+    def recording_lookup(self, hay, probes):
+        in_lookup.append(True)
+        try:
+            return lookup(self, hay, probes)
+        finally:
+            in_lookup.pop()
+
+    CudaKernels._search = staticmethod(recording_search)
+    CudaKernels.lookup_keys = recording_lookup
+    try:
+        yield calls
+    finally:
+        CudaKernels._search = staticmethod(search_fn)
+        CudaKernels.lookup_keys = lookup
+
+
 def phase_main(device, configs=MAIN_CONFIGS, seed: int = 2,
                card: str = "") -> Dict:
     """``simulate``'s path per configuration on ``device``: with the
-    hand kernels (the device's own lowering; launches counted) and with
-    the plain versions on the same device.  Returns the launch counts
-    and the wall seconds of both runs per configuration; ``card`` names
-    the device in the log."""
+    hand kernels (the device's own lowering; launches counted, and the
+    sizes of every ``search`` launch recorded) and with the plain
+    versions on the same device.  Returns the launch counts, the search
+    sizes and the wall seconds of both runs per configuration; ``card``
+    names the device in the log."""
     device = torch.device(device)
     launches = {k.__name__: 0 for k in KERNELS}
-    walls = []
+    walls, search_calls = [], []
     for design, n, nnz in configs:
         inputs = make_inputs(_spec(design), n, nnz, seed)
         for k in KERNELS:
             k.launches = 0
-        kern, seams = _traced_run(design, inputs, n,
-                                  VectorBackend(device=device))
+        with record_search_calls(search_calls):
+            kern, seams = _traced_run(design, inputs, n,
+                                      VectorBackend(device=device))
         counts = {k.__name__: k.launches for k in KERNELS}
         for k, c in counts.items():
             launches[k] += c
@@ -536,7 +573,50 @@ def phase_main(device, configs=MAIN_CONFIGS, seed: int = 2,
             + ", ".join(f"{k} {v:.3f}" for k, v in seams.items())
             + f"; {sum(seams.values()) / kern[2]:.1%} of the run; plain "
               f"run's seam calls {sum(plain_seams.values()):.3f}")
-    return {"launches": launches, "walls": walls}
+    return {"launches": launches, "walls": walls,
+            "search_calls": search_calls}
+
+
+def phase_search_slack(device, calls, reps: int = 5,
+                       seed: int = 3) -> Dict:
+    """``search`` at the sizes of the main phase's own launches: each
+    (keys, probes, sorted) case replayed on random keys (half the probes
+    hit) and timed beside its bytes bound.  Returns the launches and the
+    sums over them of time, bound and time - bound (ms)."""
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    cases: Dict[Tuple[int, int, bool], int] = {}
+    for c in calls:
+        if c[1]:                                # the wrapper's launches
+            cases[c] = cases.get(c, 0) + 1
+    total = {"launches": 0, "ms": 0.0, "bound_ms": 0.0}
+    for (m, n, is_sorted), count in sorted(cases.items()):
+        span = 4 * max(m, 1)
+
+        def randint(size):
+            return torch.randint(0, span, (size,), generator=gen,
+                                 device=device)
+
+        hay = torch.unique(randint(2 * m))[:m]
+        probes = randint(n)
+        if m:
+            hits = hay[torch.randint(0, len(hay), (n,), generator=gen,
+                                     device=device)]
+            probes = torch.where(torch.rand(n, generator=gen, device=device)
+                                 < 0.5, hits, probes)
+        if is_sorted:
+            probes = torch.sort(probes).values
+        ms = _time_ms(lambda: search(hay, probes), device, reps)
+        total["launches"] += count
+        total["ms"] += count * ms
+        total["bound_ms"] += count * 8 * (m + 2 * n) \
+            / HBM_BYTES_PER_S * 1e3
+    total["slack_ms"] = total["ms"] - total["bound_ms"]
+    log(f"search at the main phase's sizes: {total['launches']} launches "
+        f"({len(cases)} sizes), {total['ms']:.4f} ms in all, bound "
+        f"{total['bound_ms']:.4f} ms, launches x (time - bound) "
+        f"{total['slack_ms']:.4f} ms")
+    return total
 
 
 # ---------------------------------------------------------------------- #
@@ -787,22 +867,27 @@ def attn_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
     return (batch, cfg.n_heads, cfg.n_kv_heads, seq, seq, cfg.hdim)
 
 
-def flash_bound(shape, dtype, causal: bool = True) -> Tuple[float, str]:
-    """The least time (ms) of one ``flash_attention`` call on an H100 and
-    what sets it: q, k, v read once and o written once, against QK^T and
-    PV over the (query, key) pairs the mask keeps, at the peak rate of
-    the input dtype."""
+def flash_flops(shape, causal: bool = True) -> int:
+    """Operations of QK^T and PV over the (query, key) pairs the mask
+    keeps."""
     b, h, hkv, sq, sk, d = shape
-    es = torch.empty(0, dtype=dtype).element_size()
-    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
     if causal:      # query i keeps keys 0..min(i, sk - 1)
         n = min(sq, sk)
         pairs = n * (n + 1) // 2 + max(sq - sk, 0) * sk
     else:
         pairs = sq * sk
-    flops = 4 * b * h * d * pairs
+    return 4 * b * h * d * pairs
+
+
+def flash_bound(shape, dtype, causal: bool = True) -> Tuple[float, str]:
+    """The least time (ms) of one ``flash_attention`` call on an H100 and
+    what sets it: q, k, v read once and o written once, against
+    ``flash_flops`` at the peak rate of the input dtype."""
+    b, h, hkv, sq, sk, d = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flash_flops(shape, causal) / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -861,10 +946,12 @@ def phase_flash_kernel(device, prefill_shape=None, shapes=ATTN_SHAPES,
                      lambda: torch.nn.functional.scaled_dot_product_attention(
                          q, k, v, is_causal=True, enable_gqa=True),
                      device, reps)}
+            tflops = flash_flops(shape) / r["ms"] * 1e-9
             log(f"flash_kernel {shape} {dtype} causal on {card or device}: "
-                f"max abs err {err:.3g}; {r['ms']:.4f} ms (plain "
-                f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
-                f"{bound:.4f} by {by}, {bound / r['ms']:.1%} of it)")
+                f"max abs err {err:.3g}; {r['ms']:.4f} ms, {tflops:.1f} "
+                f"TFLOP/s, {bound / r['ms']:.1%} of the bound {bound:.4f} "
+                f"ms by {by} (plain {r['plain_ms']:.4f}, SDPA "
+                f"{r['library_ms']:.4f})")
             if dtype == torch.bfloat16:
                 rec = r
             del q, k, v
@@ -988,6 +1075,11 @@ def main() -> int:
     for rec in kernels:
         rec["launches"] = main_run["launches"][rec["name"]]
         rec.pop("shapes")
+    slack = phase_search_slack("cuda", main_run["search_calls"])
+    if slack["launches"] != main_run["launches"]["search"]:
+        raise AssertionError(f"recorded {slack['launches']} search "
+                             f"launches, counted "
+                             f"{main_run['launches']['search']}")
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
     ssd_rec = phase_ssd_kernel("cuda", card=smi)

@@ -7,6 +7,10 @@ build takes seconds), and loaded with ``ctypes``.  The libraries go to
 their source and flags, so an edited source is rebuilt and an unchanged
 one is reused.  Nothing here runs at import time, and nothing catches a
 failed build: it raises with the compiler's output.
+
+No library links against the driver (``-lcuda``): ``flash_attention.cu``
+encodes its TMA tensor maps with ``cuTensorMapEncodeTiled``, which it
+reaches through the runtime's ``cudaGetDriverEntryPoint``.
 """
 from __future__ import annotations
 

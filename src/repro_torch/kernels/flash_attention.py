@@ -1,13 +1,18 @@
 """``flash_attention``: softmax attention with GQA in one pass over the
 keys.
 
-The CUDA kernel (``csrc/flash_attention.cu``) replaces the reference's
-Pallas kernel ``_attn_kernel``.  ``flash_attention`` launches it for
+The CUDA kernels (``csrc/flash_attention.cu``) replace the reference's
+Pallas kernel ``_attn_kernel``.  ``flash_attention`` launches one for
 tensors on a CUDA device and takes the plain version,
 ``flash_attention_plain`` (the oracle ``ref.attention_ref``), only for
-tensors on the CPU.  Both compute scores, softmax and the PV product in
-float32 and return ``q``'s dtype; the causal mask is top-left aligned
-(query i sees keys j <= i, also when sq != sk).
+tensors on the CPU.  The causal mask is top-left aligned (query i sees
+keys j <= i, also when sq != sk); the result has ``q``'s dtype.
+
+In bf16 the kernel runs both products on the tensor cores (wgmma, with
+TMA loading the tiles): fp32 scores, an fp32 carry, and the softmax
+weights rounded to bf16 for the PV product, as the reference model's
+attention rounds them.  In fp32 it computes everything in fp32 on the
+CUDA cores, as the plain version does.
 """
 from __future__ import annotations
 
@@ -60,11 +65,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` as it is when the kernel can read it in place (the last
-    dimension contiguous, 16-byte-aligned rows), else a contiguous copy."""
-    if t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3]) \
+    dimension contiguous; base and strides on 16 bytes, as TMA needs in
+    bf16 and float4 loads in fp32), else a fresh contiguous copy."""
+    per_16 = 16 // t.element_size()
+    if t.stride(-1) == 1 and all(s % per_16 == 0 for s in t.stride()[:3]) \
             and t.data_ptr() % 16 == 0:
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

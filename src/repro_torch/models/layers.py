@@ -169,8 +169,10 @@ def mha(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset``, which no caller passes.
 
     In bf16 the reference rounds the softmax weights to ``v``'s dtype
-    before the PV product; the kernel keeps them in fp32 and divides at
-    the end.  In fp32 the two agree to reassociation."""
+    before the PV product, and so does the kernel (P = exp(s - m) in
+    bf16 on the tensor cores, the division by the fp32 sum at the end);
+    the plain version, which the CPU takes, keeps them in fp32.  In fp32
+    all agree to reassociation."""
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2)

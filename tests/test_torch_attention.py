@@ -111,6 +111,58 @@ def test_flash_attention_wrapper_on_cpu_takes_plain():
     assert flash_attention.launches == 0
 
 
+def _bf16_kernel_emulated(q, k, v, causal: bool, tile: int = 128):
+    """The bf16 CUDA kernel's arithmetic in float32 torch: 128-key tiles,
+    a running max, P = exp(s - m) rounded to bf16 for the PV product, l
+    summing the unrounded weights, and the division by l at the end.
+    (The kernel skips the tiles past a causal block's last query; their
+    weights are exactly 0 here.)"""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, h // hkv, sq, d)
+    m = torch.full((b, hkv, h // hkv, sq, 1), -torch.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    rows = torch.arange(sq)[:, None]
+    for j0 in range(0, sk, tile):
+        kt, vt = k[:, :, j0:j0 + tile].float(), v[:, :, j0:j0 + tile].float()
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, kt) / d ** 0.5
+        if causal:
+            cols = torch.arange(j0, j0 + kt.shape[2])[None, :]
+            s = s.masked_fill(cols > rows, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(torch.isinf(m_new), 0.0, m_new)
+        alpha, p = torch.exp(m - base), torch.exp(s - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bkgqs,bksd->bkgqd", p.bfloat16().float(), vt)
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d", ATTN_SHAPES + [
+    (1, 28, 4, 256, 256, 128)], ids=str)        # Qwen2-7B's heads, short
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_numerics_within_tolerance(b, h, hkv, sq, sk, d, causal):
+    """Rounding the softmax weights to bf16 for the tensor-core PV
+    product keeps the kernel within the reference's bf16 tolerance (2e-2)
+    of the plain version (PV in fp32) and of the Pallas kernel in
+    interpret mode."""
+    (qj, kj, vj), (qt, kt, vt) = _both(
+        _attn_inputs(b, h, hkv, sq, sk, d, seed=6), "bfloat16")
+    torch.exp(torch.rand(1 << 22))     # warm-up: see tests/test_torch_ssm.py
+    got = _bf16_kernel_emulated(qt, kt, vt, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    plain = flash_attention_plain(qt, kt, vt, causal=causal)
+    kernel = jax_flash(qj, kj, vj, causal=causal, block_q=128, block_k=128,
+                       interpret=True)
+    np.testing.assert_allclose(_np(got), _np(plain), atol=ATOL["bfloat16"])
+    np.testing.assert_allclose(_np(got), _np(kernel), atol=ATOL["bfloat16"])
+    # the rounding of P is really there: fp32 weights land elsewhere
+    assert not torch.equal(got, plain)
+
+
 # ---------------------------------------------------------------------- #
 # block-sparse matmul
 # ---------------------------------------------------------------------- #

@@ -122,6 +122,16 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
                                "multi_merge_ranks": 0}
     assert [w["design"] for w in out["walls"]] == \
         [c[0] for c in chip_smoke.MAIN_CONFIGS]
+    # only the CUDA lowering's searches are recorded; the replay times
+    # the wrapper's launches (probes present) at their own sizes
+    assert out["search_calls"] == []
+    slack = chip_smoke.phase_search_slack(
+        "cpu", [(100, 50, True)] * 2 + [(80, 30, False), (0, 5, True),
+                                        (7, 0, True)], reps=1)
+    assert slack["launches"] == 4 and slack["ms"] > 0
+    # keys read once, probes read and positions written once, 8 bytes each
+    assert abs(slack["bound_ms"] - 8 * (2 * 200 + 140 + 10)
+               / chip_smoke.HBM_BYTES_PER_S * 1e3) < 1e-12
 
 
 def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):

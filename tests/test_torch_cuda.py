@@ -189,6 +189,79 @@ def test_flash_attention_reads_strided_views_on_card(cuda_device):
         rtol=0, atol=2e-5)
 
 
+#: the bf16 kernel (128-query blocks, 128-key tiles): (b, h, hkv, sq, sk,
+#: d) at every head dim with lengths that are multiples of neither tile,
+#: keys below one tile, sq < sk and sq > sk, GQA group 7, one key
+BF16_CASES = [(2, 4, 2, 200, 333, 32), (1, 3, 3, 200, 333, 64),
+              (1, 2, 1, 200, 333, 128), (2, 2, 1, 64, 40, 128),
+              (1, 4, 2, 333, 200, 64), (1, 4, 4, 100, 260, 128),
+              (1, 14, 2, 300, 300, 128), (1, 14, 2, 129, 1, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_CASES, ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_bf16_kernel_on_card(cuda_device, shape, causal):
+    """The tensor-core kernel rounds the softmax weights to bf16 for the
+    PV product: within the reference test's 2e-2 of the fp32 plain
+    version, one launch per call."""
+    q, k, v = _qkv(shape, torch.bfloat16, cuda_device, seed=7)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, causal).float(),
+                               rtol=0, atol=2e-2)
+
+
+def _strided_qkv(layout, device):
+    """q [2, 14, 150, 128] and k, v [2, 2, 150, 128] bf16 as ``mha``
+    passes them: [b, h, s, d] views of [b, s, h, d] projections.
+    ``pad`` widens each head row by 4 elements (head stride 132: off the
+    16-byte rule); ``offset`` starts the storage one element in (base off
+    16 bytes).  Both take the copy; ``views`` is read in place."""
+    gen = torch.Generator(device).manual_seed(2)
+    w = 132 if layout == "pad" else 128
+    n = 2 * 150 * 14 * w + 2 * 150 * 2 * 2 * w
+    flat = torch.randn(n + 1, generator=gen, device=device).bfloat16()
+    flat = flat[1:] if layout == "offset" else flat[:n]
+    qf = flat[:2 * 150 * 14 * w].view(2, 150, 14, w)
+    kvf = flat[2 * 150 * 14 * w:].view(2, 150, 2, 2, w)
+    return (qf[..., :128].transpose(1, 2),
+            kvf[..., 0, :128].transpose(1, 2),
+            kvf[..., 1, :128].transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["views", "pad", "offset"])
+def test_flash_attention_bf16_strided_views_on_card(cuda_device, layout):
+    q, k, v = _strided_qkv(layout, cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    # in place, the output keeps q's [b, s, h, d] layout
+    assert got.transpose(1, 2).is_contiguous() == (layout == "views")
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v).float(),
+                               rtol=0, atol=2e-2)
+    # the same arithmetic as on contiguous copies
+    want = flash_attention(*(t.contiguous() for t in (q, k, v)))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_empty_batch_on_card(cuda_device):
+    """Nothing to compute: an empty result and no launch."""
+    q, k, v = _qkv((0, 14, 2, 64, 64, 128), torch.bfloat16, cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert flash_attention.launches == before
+
+
 #: (M, K, N, bm, bk, bn, tile density): the reference's BSMM_SHAPES (the
 #: last with an empty A), tile-rows of three 64-row CTAs and a ragged N
 BSMM_CASES = [(128, 128, 128, 64, 64, 64, 0.5),

@@ -14,7 +14,8 @@ Tolerances:
   * bfloat16: atol 6e-2 on outputs of magnitude about 1 (eight bf16 ulps
     at 1.0).  Besides rounding products at other places, the reference
     rounds the softmax weights to bf16 before the PV product, which the
-    flash kernel and its plain version do not.
+    flash kernel's plain version (the CPU path) does not; the bf16 kernel
+    on the card does.
 """
 import dataclasses
 
