@@ -21,11 +21,14 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     once with the hand kernels and once with the plain
                     versions on the card: identical outputs, counters and
                     Reports, no fallback, no downgrade, every seam kernel
-                    launched; then ``search`` replayed at the sizes of
-                    its launches there, timed beside its bound;
+                    launched; then ``search``, ``merge_path`` and
+                    ``multi_merge_ranks`` replayed at the sizes of their
+                    launches there, timed beside their bounds;
   6. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
-                    reference's test shapes, timed beside its bound;
+                    reference's test shapes, timed beside its bound
+                    (TFLOP/s and share of it), with nvcc's register and
+                    spill report of the kernel;
   7. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
                     batch 4 x 2048 tokens, with the kernel and with stage
                     (1) on the plain version: logits and greedy tokens
@@ -531,22 +534,48 @@ def record_search_calls(calls: List[Tuple[int, int, bool]]):
         CudaKernels.lookup_keys = lookup
 
 
+@contextlib.contextmanager
+def record_merge_calls(calls: List[Tuple[str, Tuple[int, ...]]]):
+    """Appends ("merge_path", (len a, len b)) and ("multi_merge_ranks",
+    row lengths) for every merge the CUDA lowering makes while open."""
+    merge, multi = CudaKernels._merge, CudaKernels._multi_merge
+
+    def recording_merge(a, b):
+        calls.append(("merge_path", (len(a), len(b))))
+        return merge(a, b)
+
+    def recording_multi(keys, offs):
+        o = offs.tolist()
+        calls.append(("multi_merge_ranks",
+                      tuple(hi - lo for lo, hi in zip(o, o[1:]))))
+        return multi(keys, offs)
+
+    CudaKernels._merge = staticmethod(recording_merge)
+    CudaKernels._multi_merge = staticmethod(recording_multi)
+    try:
+        yield calls
+    finally:
+        CudaKernels._merge = staticmethod(merge)
+        CudaKernels._multi_merge = staticmethod(multi)
+
+
 def phase_main(device, configs=MAIN_CONFIGS, seed: int = 2,
                card: str = "") -> Dict:
     """``simulate``'s path per configuration on ``device``: with the
     hand kernels (the device's own lowering; launches counted, and the
-    sizes of every ``search`` launch recorded) and with the plain
-    versions on the same device.  Returns the launch counts, the search
-    sizes and the wall seconds of both runs per configuration; ``card``
-    names the device in the log."""
+    sizes of every ``search`` and merge launch recorded) and with the
+    plain versions on the same device.  Returns the launch counts, the
+    search and merge sizes and the wall seconds of both runs per
+    configuration; ``card`` names the device in the log."""
     device = torch.device(device)
     launches = {k.__name__: 0 for k in KERNELS}
-    walls, search_calls = [], []
+    walls, search_calls, merge_calls = [], [], []
     for design, n, nnz in configs:
         inputs = make_inputs(_spec(design), n, nnz, seed)
         for k in KERNELS:
             k.launches = 0
-        with record_search_calls(search_calls):
+        with record_search_calls(search_calls), \
+                record_merge_calls(merge_calls):
             kern, seams = _traced_run(design, inputs, n,
                                       VectorBackend(device=device))
         counts = {k.__name__: k.launches for k in KERNELS}
@@ -574,7 +603,7 @@ def phase_main(device, configs=MAIN_CONFIGS, seed: int = 2,
             + f"; {sum(seams.values()) / kern[2]:.1%} of the run; plain "
               f"run's seam calls {sum(plain_seams.values()):.3f}")
     return {"launches": launches, "walls": walls,
-            "search_calls": search_calls}
+            "search_calls": search_calls, "merge_calls": merge_calls}
 
 
 def phase_search_slack(device, calls, reps: int = 5,
@@ -617,6 +646,58 @@ def phase_search_slack(device, calls, reps: int = 5,
         f"{total['bound_ms']:.4f} ms, launches x (time - bound) "
         f"{total['slack_ms']:.4f} ms")
     return total
+
+
+def merge_bound_ms(name: str, sizes: Tuple[int, ...]) -> float:
+    """Bytes bound (ms) of one merge launch: ``merge_path`` reads 8 bytes
+    a key and writes 8 + 1 (merged key, source flag); ``multi_merge_ranks``
+    reads 8 bytes a key and 8 an offset and writes an 8-byte rank."""
+    n = sum(sizes)
+    nbytes = 17 * n if name == "merge_path" else 16 * n + 8 * (len(sizes) + 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7) -> Dict:
+    """``merge_path`` and ``multi_merge_ranks`` at the sizes of the main
+    phase's own launches: each recorded case replayed on random sorted
+    rows that share keys, timed beside its bytes bound.  Returns per
+    kernel the launches and the sums over them of time, bound and time -
+    bound (ms)."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    cases: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+    for c in calls:
+        cases[c] = cases.get(c, 0) + 1
+    out = {name: {"launches": 0, "sizes": 0, "ms": 0.0, "bound_ms": 0.0}
+           for name in ("merge_path", "multi_merge_ranks")}
+    for (name, sizes), count in sorted(cases.items()):
+        rows = [_sorted_unique(rng, 0, 1 << 40, n) for n in sizes]
+        for r in range(1, len(rows)):          # shared keys, sizes kept
+            m = min(len(rows[0]), len(rows[r])) // 4
+            if m:
+                rows[r] = np.sort(np.concatenate(
+                    [np.setdiff1d(rows[r], rows[0])[:len(rows[r]) - m],
+                     rows[0][:m]]))
+        ts = [torch.from_numpy(r).to(device) for r in rows]
+        if name == "merge_path":
+            ms = _time_ms(lambda: merge_path(ts[0], ts[1]), device, reps)
+        else:
+            keys = torch.cat(ts)
+            offs = torch.tensor(np.cumsum([0] + list(sizes)), device=device)
+            ms = _time_ms(lambda: multi_merge_ranks(keys, offs), device,
+                          reps)
+        rec = out[name]
+        rec["launches"] += count
+        rec["sizes"] += 1
+        rec["ms"] += count * ms
+        rec["bound_ms"] += count * merge_bound_ms(name, sizes)
+    for name, rec in out.items():
+        rec["slack_ms"] = rec["ms"] - rec["bound_ms"]
+        log(f"{name} at the main phase's sizes: {rec['launches']} launches "
+            f"({rec['sizes']} sizes), {rec['ms']:.4f} ms in all, bound "
+            f"{rec['bound_ms']:.4f} ms, launches x (time - bound) "
+            f"{rec['slack_ms']:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -677,6 +758,41 @@ def ssd_bound(shape, dtype) -> Tuple[float, str]:
                                  else "operations")
 
 
+def ssd_kernel_flops(shape, dtype) -> int:
+    """Operations one ``ssd_chunk`` launch does on the card, as its tiles
+    run (not the function's minimum, ``ssd_bound``'s): G over whole 64 x
+    64 tiles j <= i once per (b, c, 8-head group); in bf16 Y over the
+    16 x 16 (i, j) slices the tensor-core kernel computes, three passes
+    each (the split of S), N and P padded to 16; in fp32 Y over whole 64
+    x 64 tiles, N padded to 32 and P to 64."""
+    B, nc, l, H, P, N = shape
+    rt = -(-l // 64)                          # row tiles of 64
+    tiles = rt * (rt + 1) // 2                # (i, j) tiles with j <= i
+    cells = B * nc * -(-H // 8)
+    if dtype == torch.bfloat16:
+        g = cells * tiles * 2 * 64 * 64 * (-(-N // 16) * 16)
+        # off the diagonal 4 x 4 slices a tile; on it 1 + 2 + 3 + 4
+        slices = 16 * (rt * (rt - 1) // 2) + 10 * rt
+        y = B * nc * H * slices * 3 * 2 * 16 * 16 * (-(-P // 16) * 16)
+    else:
+        g = cells * tiles * 2 * 64 * 64 * (-(-N // 32) * 32)
+        y = B * nc * H * tiles * 2 * 64 * 64 * (-(-P // 64) * 64)
+    return g + y
+
+
+def ssd_build_report(logs: Dict[str, str]) -> List[str]:
+    """nvcc's ``-Xptxas -v`` lines for ``ssd_chunk.cu``'s kernels (entry,
+    registers, spills); raises if one spills."""
+    lines = [ln.strip() for ln in logs.get("ssd_chunk", "").splitlines()
+             if "entry function" in ln or "registers" in ln or "spill" in ln
+             or "smem" in ln]
+    for ln in lines:
+        if "spill" in ln and ("0 bytes spill stores" not in ln
+                              or "0 bytes spill loads" not in ln):
+            raise AssertionError(f"ssd_chunk spills registers: {ln}")
+    return lines
+
+
 def _ssd_inputs(shape, dtype, device: torch.device, seed: int):
     B, nc, l, H, P, N = shape
     gen = torch.Generator(device).manual_seed(seed)
@@ -694,11 +810,16 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
     """``ssd_chunk`` against ``ssd_chunk_plain`` (|got - want| <= SSD_TOL
     (1 + |want|)) at the prefill shape and the reference's test shapes,
     in bf16 and fp32; the kernel's time at the prefill shape beside its
-    bound and the plain version's.  Returns the bf16 prefill record."""
+    bound (its TFLOP/s, counting the work it does, and its share of the
+    bound) and the plain version's; nvcc's register and spill report of
+    the kernel when this process built it.  Returns the bf16 prefill
+    record."""
     device = torch.device(device)
     if prefill_shape is None:
         prefill_shape = ssd_shape(TC.get(MODEL_ARCH), PREFILL_BATCH,
                                   PREFILL_SEQ)
+    for line in ssd_build_report(build.BUILD_LOGS):
+        log(f"ssd_kernel build: {line}")
     recs = {}
     for shape in (prefill_shape,) + tuple(shapes):
         for dtype in (torch.bfloat16, torch.float32):
@@ -724,9 +845,11 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
                                      reps),
                 "bound_ms": bound, "bound_by": by, "library_ms": None}
             r = recs[dtype]
+            tflops = ssd_kernel_flops(shape, dtype) / r["ms"] * 1e-9
             log(f"ssd_kernel {shape} {dtype} on {card or device}: max abs "
-                f"err {err:.3g}; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
-                f" bound {bound:.4f} by {by}, {bound / r['ms']:.1%} of it)")
+                f"err {err:.3g}; {r['ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
+                f"{bound / r['ms']:.1%} of the bound {bound:.4f} ms by {by} "
+                f"(plain {r['plain_ms']:.4f})")
             del args, got, want
     return recs[torch.bfloat16]
 
@@ -1080,6 +1203,12 @@ def main() -> int:
         raise AssertionError(f"recorded {slack['launches']} search "
                              f"launches, counted "
                              f"{main_run['launches']['search']}")
+    merges = phase_merge_slack("cuda", main_run["merge_calls"])
+    for kernel, rec in merges.items():
+        if rec["launches"] != main_run["launches"][kernel]:
+            raise AssertionError(f"recorded {rec['launches']} {kernel} "
+                                 f"launches, counted "
+                                 f"{main_run['launches'][kernel]}")
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
     ssd_rec = phase_ssd_kernel("cuda", card=smi)

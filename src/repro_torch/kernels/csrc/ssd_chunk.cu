@@ -11,35 +11,145 @@
 // Replaces the Pallas kernel src/repro/kernels/ssd_chunk.py::
 // _ssd_chunk_kernel (pl.pallas_call at ssd_chunk.py:62, grid (B, H, nc)).
 //
-// Bound: bytes.  At the Mamba2-1.3B prefill shape (B 4, S 2048, l 256,
-// H 64, P 64, N 128, bf16) the inputs and output are read and written once
-// in about 208 MB (y in fp32 alone is 134 MB): 0.062 ms at 3.35 TB/s.  The
-// work is about 9 GFLOP (G once per (b, c), the causal half of Y), 9 us
-// at the bf16 tensor-core peak.  This first version does its products on
-// the fp32 CUDA cores (about 0.14 ms at their peak), so it is expected to
-// sit a few times above the bytes bound; tensor cores (mma.sync / wgmma)
-// are later work.
+// Bound: bytes.  At the Mamba2-1.3B prefill shape (B 4, nc 8, l 256, H 64,
+// P 64, N 128, bf16) the function reads and writes 208 MB once: x 67.1 MB
+// (bf16), y 134.2 MB (fp32, 65% of the bytes), a, b and c 2.1 MB each;
+// 0.062 ms at 3.35 TB/s.  Its operations, the causal half of G once per
+// (b, c) and of Y per head, are 8.9 GFLOP: 9 us at the bf16 tensor-core
+// peak.  So on tensor cores the kernel is bound by the bytes, most of
+// them the fp32 y store.  What it does besides, 71M exponentials and
+// three-way splits of S at that shape, costs it more than either (see
+// PERF.md).
 //
-// How it replaces the TPU kernel's assumptions:
+// bf16 (namespace tc): tensor cores.
+//  * Both products are mma.sync m16n8k16 (bf16 in, fp32 accumulate).  A
+//    CTA owns a 64-row tile i of one (b, c) and 8 heads, two of them at
+//    once: 8 warps, warp w takes rows 16 (w % 4) .. + 15 of head slot
+//    w / 4.  G = C B^T: C and B come through shared memory in 64 x 64
+//    chunks of (rows, n), zero padded past l and N (N 40 and l 100 work),
+//    double-buffered so one chunk pair loads while the last one
+//    multiplies, and ldmatrix gives the A (C rows) and B (B rows, n
+//    contiguous) fragments; each warp computes 32 of a tile's 64 columns.
+//    G is computed once per CTA and kept in shared memory in fp32, laid
+//    out as the accumulator fragments of the 4 row groups, so every head
+//    reads it back with two 16-byte loads per thread and 16 columns,
+//    without bank conflicts.
+//  * S = G o L is built in registers, 16 columns j at a time, in the
+//    accumulator layout of an m16n8 pair, which is the layout of an
+//    m16n8k16 A fragment (the identity flash_attention.cu uses for P).
+//    exp is taken of arguments <= 0 only: in the diagonal tile the
+//    argument is -inf above the diagonal; off it every j < i.  S is split
+//    three ways, S_hi = bf16(S), S_mid = bf16(S - S_hi), S_lo = bf16(S -
+//    S_hi - S_mid) (both differences exact in fp32), and Y += S_hi X +
+//    S_mid X + S_lo X as three mma on one fp32 accumulator.  X is bf16
+//    already, so its B fragment (ldmatrix.trans from shared memory) is
+//    exact, and the three terms carry S to fp32's 24 bits.  One bf16
+//    rounding of S (2^-9 of |S|) summed over 256 keys misses the 2e-4
+//    tolerance by hundreds of times where y is near 0, and two (2^-17)
+//    still by up to 2 times; three keep the kernel at fp32's accuracy
+//    (tests/test_torch_ssd_numerics.py emulates them on the CPU).  The
+//    three passes make Y 27 GFLOP at the prefill shape (28 us at the
+//    bf16 peak, under the bytes bound); the tensor cores are not what
+//    bounds the kernel, so it stays on mma.sync: a variant with the
+//    off-diagonal tiles on wgmma (m64n64k16, S from registers) gained
+//    nothing to speak of.
+//  * X tiles (64 j x 64 p, one per head slot) come by 16-byte cp.async
+//    into a ring of 2 stages that runs on across column tiles, heads and
+//    the P chunks of a head, so the next tiles load during this tile's
+//    products; staged rows are 144 bytes apart, which keeps ldmatrix free
+//    of bank conflicts.  Off the diagonal a warp's 4 slices of a tile run
+//    without a branch, so the compiler interleaves them.
+//  * y is written with 16-byte stores: a shuffle between the two threads
+//    of a quad that hold a row's 4 neighbouring columns gives each of
+//    them one float4 (rows of one head are P fp32 contiguous).
+//  * Balance: a CTA takes row tiles it and n - 1 - it of one (b, c) and
+//    head group, so every CTA walks n + 1 column tiles (4 + 1 = 3 + 2 at
+//    l = 256); the blocks above the diagonal are never computed, and in
+//    the diagonal tile a warp skips the 16-column slices above its rows.
+//  * The grid numbers the pairs and head groups of one (b, c) together,
+//    so the CTAs that read one (b, c)'s X (2 MB at the prefill shape)
+//    are resident at once and its re-reads hit L2.
+//  * 108 KB of shared memory (G 64 KB, the ring 36 KB, cum 8 KB), 256
+//    threads and at most 128 registers a thread: 2 CTAs, 16 warps, per
+//    SM at l = 256.
+//
+// fp32 (namespace cuda_core): the CUDA-core kernel of the first port, kept
+// as it was (its scan of a aside, now warp_cumsum) so fp32 prefill stays
+// at fp32 FMA accuracy: one CTA per
+// (b, c, 64-row tile, 8 heads) keeps its G rows in shared memory and
+// multiplies 64 x 64 tiles staged as fp32, 4 x 4 outputs a thread.
+//
+// How both replace the TPU kernel's assumptions:
 //  * one whole (b, h, c) cell in VMEM (G and L are 256 x 256 fp32, 256 KB
-//    each, over the 227 KB a CTA may have): a CTA owns one 64-row tile of
-//    one chunk and keeps only G's rows of that tile (64 x l fp32, 64 KB at
-//    l = 256) in shared memory; S = G o L and X move through 64 x 64 tiles.
-//  * the full l x l products: the CTA loops over column tiles j <= i only,
-//    so the blocks above the diagonal are never computed.
+//    each, over the 227 KB a CTA may have): a CTA owns 64-row tiles of
+//    one chunk and keeps only G's rows of a tile in shared memory; S never
+//    leaves registers (bf16) or moves through 64 x 64 tiles (fp32).
+//  * the full l x l products: column tiles j <= i only.
 //  * G recomputed per head: G has no head index (one B/C group), so a CTA
 //    computes its G rows once and loops over 8 heads.
-//  * jnp.cumsum inside the cell: warp 0 scans a with shuffles per head.
+//  * jnp.cumsum inside the cell: a warp scans a with shuffles per head,
+//    in fp64, rounded once (see warp_cumsum).
 //  * masked exponentials: the TPU kernel guards exp() with two where()s;
-//    here exp is evaluated only for j <= i, where cum[i] - cum[j] <= 0, so
-//    the entries whose exp could overflow are never computed.
-//  * a serial grid: CTAs are independent; the row tiles with the most
-//    column tiles are numbered first so the long CTAs start first.
+//    here exp is used only for j <= i, where cum[i] - cum[j] <= 0, so the
+//    entries whose exp could overflow never enter a product.  The decay
+//    is never factored as exp(cum[i] - r) exp(r - cum[j]), which
+//    overflows under strong decay.
+//  * a serial grid: CTAs are independent (balanced pairs in bf16; the
+//    row tiles with the most column tiles first in fp32).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// out[k] = a[0] + ... + a[k] for k < n (a as 0 past l), summed in fp64 and
+// rounded once, as ssd_chunk_plain does: an fp32 scan in another order
+// than the plain version's moves cum by ulps of |cum|, and under strong
+// decay (|cum| in the hundreds) exp(cum[i] - cum[j]) with it, by several
+// times the kernel's tolerance.  One warp, n a multiple of 32: lane t
+// sums its n / 32 values in order, 8 loads in flight at a time; one
+// shuffle scan adds the lanes before it; a second pass writes.
+__device__ __forceinline__ void warp_cumsum(const float* __restrict__ ab,
+                                            int l, int n, float* out,
+                                            int lane) {
+  const int seg = n / 32, k0 = lane * seg;
+  auto load8 = [&](int e0, float (&v)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = k0 + e0 + e;
+      v[e] = (e0 + e < seg && k < l) ? ab[k] : 0.f;
+    }
+  };
+  double part = 0.0;
+  for (int e0 = 0; e0 < seg; e0 += 8) {
+    float v[8];
+    load8(e0, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part += (double)v[e];
+  }
+  double incl = part;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  double run = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) run = 0.0;
+  for (int e0 = 0; e0 < seg; e0 += 8) {
+    float v[8];
+    load8(e0, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      run += (double)v[e];
+      if (e0 + e < seg) out[k0 + e0 + e] = (float)run;
+    }
+  }
+}
+
+// --------------------------------------------------------------------- //
+// fp32: CUDA cores
+// --------------------------------------------------------------------- //
+namespace cuda_core {
 
 constexpr int kThreads = 256;       // 16 x 16; each owns a 4 x 4 block
 constexpr int kTile = 64;           // rows i, columns j and p per tile
@@ -126,22 +236,9 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
     const int h = hg * kHeadsPerCta + hh;
     if (h >= H) break;
     __syncthreads();        // G written; the last head's tiles consumed
-    if (tid < 32) {
-      const float* ab = a + (((int64_t)bi * H + h) * nc + ci) * l;
-      float carry = 0.f;
-      for (int k0 = 0; k0 < j_end; k0 += 32) {
-        const int k = k0 + tid;
-        float v = (k < l) ? ab[k] : 0.f;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float t = __shfl_up_sync(0xffffffffu, v, off);
-          if (tid >= off) v += t;
-        }
-        v += carry;
-        cum_s[k] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
-    }
+    if (tid < 32)
+      warp_cumsum(a + (((int64_t)bi * H + h) * nc + ci) * l, l, j_end, cum_s,
+                  tid);
     __syncthreads();
     for (int p0 = 0; p0 < P; p0 += kTile) {
       float acc[4][4] = {};
@@ -215,6 +312,425 @@ int launch(const void* x, const void* a, const void* b, const void* c,
   return (int)cudaGetLastError();
 }
 
+}  // namespace cuda_core
+
+// --------------------------------------------------------------------- //
+// bf16: tensor cores
+// --------------------------------------------------------------------- //
+namespace tc {
+
+constexpr int kGroups = 4;               // row groups of 16 rows
+constexpr int kSlots = 2;                // heads in flight at once
+constexpr int kWarps = kGroups * kSlots; // warp w: group w % 4, slot w / 4
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kGroups;      // rows i of a row tile
+constexpr int kCols = 64;                // columns j of a column tile
+constexpr int kWide = 64;                // p of a chunk of Y; n of a G step
+constexpr int kLd = kWide + 8;           // staged row: 144 B apart
+constexpr int kTileBytes = kCols * kLd * 2;       // one staged 64 x 64 tile
+constexpr int kStages = 2;               // X ring, kSlots tiles a stage
+constexpr int kStageBytes = kSlots * kTileBytes;
+constexpr int kHeads = 8;                // heads of a CTA, one G for all
+constexpr int kSlices = kCols / 16;      // 16-column slices of a tile
+constexpr int kGTile = kSlices * 32 * 8; // floats of one group's G tile
+static_assert(kRows == kCols, "column tile jt <= row tile it");
+static_assert(kStages * kSlots == 4, "G double-buffers its C and B chunks");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; bytes 0 zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a b, m16n8k16, bf16 inputs, fp32 accumulator (not volatile: a
+// function of its registers, which the compiler may schedule freely)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[2 np], acc[2 np + 1] += a X for the kNp 16-column groups of X
+template <int kNp>
+__device__ __forceinline__ void mma_x(float (&acc)[8][4],
+                                      const uint32_t (&a)[4],
+                                      const uint32_t (&bx)[kNp][4]) {
+#pragma unroll
+  for (int np = 0; np < kNp; ++np) {
+    mma(acc[2 * np], a, bx[np][0], bx[np][1]);
+    mma(acc[2 * np + 1], a, bx[np][2], bx[np][3]);
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (v0, v1) = hi + mid + lo to fp32's 24 bits, each a packed bf16 pair
+// (v0 in the low half, as the A fragment wants the lower column)
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = v0 - hf.x, r1 = v1 - hf.y;          // exact
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));  // exact args
+}
+
+// Rows [0, 64) and columns [0, 64) of a row-major bf16 matrix at src (row
+// stride ld elements) into a [64][kLd] tile at dst, rows >= nr and
+// columns >= ncols as zeros.  vec: 16-byte cp.async (src and ld on 8
+// elements, ncols a multiple of 8); else plain loads and stores.
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t ld, int nr, int ncols,
+                                          bool vec) {
+  constexpr int kChunks = kWide / 8;
+  for (int idx = threadIdx.x; idx < kCols * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, k = (idx % kChunks) * 8;
+    unsigned char* d = dst + (r * kLd + k) * 2;
+    if (vec) {
+      const bool in = r < nr && k < ncols;
+      cp_async16(smem_addr(d), in ? src + r * ld + k : src, in ? 16 : 0);
+    } else {
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (r < nr && k + e < ncols) ? src[r * ld + k + e]
+                                         : __float2bfloat16(0.f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// Y += (G o L) X over one 64-column tile, for the warp's 16 rows (r0 and
+// r0 + 8 in the tile are the thread's): S is built in registers 16
+// columns at a time, split three ways and multiplied with the tile's kNp
+// 16-column groups of X.  g_t: the warp's G fragments of the tile plus
+// lane * 8; cum_j: cum at the tile's first column; xs: the X tile.
+// kDiag: the diagonal tile, where a warp takes only the n_slices slices
+// that reach its rows and L is masked above the diagonal; off it every
+// slice is whole and the loop has no branch, so the compiler interleaves
+// the slices.
+template <int kNp, bool kDiag>
+__device__ __forceinline__ void y_tile(float (&acc)[8][4],
+                                       const float* g_t, const float* cum_j,
+                                       float cum_i0, float cum_i1, int r0,
+                                       int n_slices, uint32_t xs, int lane) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < kSlices; ++kk) {
+    if (kDiag && kk >= n_slices) break;
+    const float4 ga = *reinterpret_cast<const float4*>(g_t + kk * 256);
+    const float4 gb = *reinterpret_cast<const float4*>(g_t + kk * 256 + 4);
+    const int j = 16 * kk + 2 * t;             // columns j, j+1, j+8, j+9
+    const float2 ca = *reinterpret_cast<const float2*>(cum_j + j);
+    const float2 cc = *reinterpret_cast<const float2*>(cum_j + j + 8);
+    // exponents cum[i] - cum[j] at (row, column) (g, j), (g, j+1),
+    // (g+8, j), (g+8, j+1), then the same at j + 8
+    float e[8] = {cum_i0 - ca.x, cum_i0 - ca.y, cum_i1 - ca.x,
+                  cum_i1 - ca.y, cum_i0 - cc.x, cum_i0 - cc.y,
+                  cum_i1 - cc.x, cum_i1 - cc.y};
+    if (kDiag) {
+      // above the diagonal the exponent is -inf (0xff800000), so exp is
+      // only ever taken of arguments <= 0 and gives 0 there
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (j + (q & 1) + (q & 4 ? 8 : 0) > r0 + (q & 2 ? 8 : 0))
+          e[q] = __uint_as_float(0xff800000u);
+    }
+    // __expf, ex2.approx of e log2 e: within 2 + floor(|1.16 e|) ulp, an
+    // error that grows with |e| only where exp(e) is already small
+    // (tests/test_torch_ssd_numerics.py holds that bound to the tolerance)
+    const float s0 = ga.x * __expf(e[0]), s1 = ga.y * __expf(e[1]);
+    const float s2 = ga.z * __expf(e[2]), s3 = ga.w * __expf(e[3]);
+    const float s4 = gb.x * __expf(e[4]), s5 = gb.y * __expf(e[5]);
+    const float s6 = gb.z * __expf(e[6]), s7 = gb.w * __expf(e[7]);
+    // the m16n8 pair's accumulators are the m16k16 A fragment
+    uint32_t ah[4], am[4], al[4];
+    split3(s0, s1, ah[0], am[0], al[0]);    // row g,     k 2t, 2t+1
+    split3(s2, s3, ah[1], am[1], al[1]);    // row g + 8
+    split3(s4, s5, ah[2], am[2], al[2]);    // row g,     k 2t+8, 2t+9
+    split3(s6, s7, ah[3], am[3], al[3]);    // row g + 8
+    uint32_t bx[kNp][4];
+#pragma unroll
+    for (int np = 0; np < kNp; ++np)
+      ldmatrix_x4_trans(bx[np], xs + ((16 * kk + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8) * kLd +
+                                      16 * np + (lane >> 4) * 8) * 2);
+    // part by part: 2 kNp independent accumulators between dependent mma
+    mma_x<kNp>(acc, ah, bx);
+    mma_x<kNp>(acc, am, bx);
+    mma_x<kNp>(acc, al, bx);
+  }
+}
+
+// y_tile for a chunk of n_np (1 to 4) 16-column groups of X
+template <bool kDiag>
+__device__ __forceinline__ void y_tile_n(int n_np, float (&acc)[8][4],
+                                         const float* g_t, const float* cum_j,
+                                         float cum_i0, float cum_i1, int r0,
+                                         int n_slices, uint32_t xs,
+                                         int lane) {
+  switch (n_np) {
+    case 4: y_tile<4, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                             xs, lane); break;
+    case 3: y_tile<3, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                             xs, lane); break;
+    case 2: y_tile<2, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                             xs, lane); break;
+    default: y_tile<1, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                              xs, lane);
+  }
+}
+
+// vec bits: 1 x by cp.async, 2 b and c by cp.async, 4 y by float4 stores
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+             const __nv_bfloat16* __restrict__ b,
+             const __nv_bfloat16* __restrict__ c, float* __restrict__ y,
+             int nc, int l, int H, int P, int N, int vec) {
+  extern __shared__ float4 smem4[];
+  const int n_row_tiles = (l + kRows - 1) / kRows;
+  const int l_pad = n_row_tiles * kRows;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
+  // G: [group][column tile][slice][lane][8], the accumulator fragments
+  float* g_s = reinterpret_cast<float*>(ring + kStages * kStageBytes);
+  float* cum_s = g_s + kGroups * n_row_tiles * kGTile;  // [kHeads][l_pad]
+
+  const int n_pairs = (n_row_tiles + 1) / 2;
+  const int n_groups = (H + kHeads - 1) / kHeads;
+  const int pair = (int)(blockIdx.x % n_pairs);
+  const int rem = (int)(blockIdx.x / n_pairs);
+  const int hg = rem % n_groups;
+  const int64_t cell = rem / n_groups;                   // b * nc + c
+  const int bi = (int)(cell / nc), ci = (int)(cell % nc);
+  const int heads = min(kHeads, H - hg * kHeads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp % kGroups, slot = warp / kGroups;
+  const int g = lane / 4, t = lane % 4;
+  const bool vec_x = vec & 1, vec_bc = vec & 2, vec_y = vec & 4;
+
+  // cumsum of a per head, over the whole chunk (zeros past l)
+  for (int hh = warp; hh < heads; hh += kWarps)
+    warp_cumsum(a + (((int64_t)bi * H + hg * kHeads + hh) * nc + ci) * l, l,
+                l_pad, cum_s + hh * l_pad, lane);
+
+  const __nv_bfloat16* cb = c + cell * l * N;
+  const __nv_bfloat16* bb = b + cell * l * N;
+  const int n_pc = (P + kWide - 1) / kWide;
+  const int n_nk = max(1, (N + kWide - 1) / kWide);
+  float* g_w = g_s + grp * n_row_tiles * kGTile;
+  const int r0 = grp * 16 + g;             // the thread's rows: r0, r0 + 8
+
+  for (int half = 0; half < 2; ++half) {
+    const int it = half == 0 ? n_row_tiles - 1 - pair : pair;
+    if (half == 1 && it == n_row_tiles - 1 - pair) break;
+    const int i0 = it * kRows;
+    const int ncol = it + 1;
+
+    // ---- G rows i0 .. i0 + 63, column tiles 0 .. it --------------------
+    // step k is (column tile k / n_nk, state chunk k % n_nk); its C and B
+    // chunks load into ring tiles 2 (k & 1) and 2 (k & 1) + 1 while step
+    // k - 1 computes.  Warp w takes its group's rows and the 16-column
+    // groups 2 slot, 2 slot + 1 of the tile.
+    const int gsteps = ncol * n_nk;
+    auto g_issue = [&](int k) {
+      if (k < gsteps) {
+        const int jt = k / n_nk, n0 = (k % n_nk) * kWide;
+        unsigned char* st = ring + 2 * (k & 1) * kTileBytes;
+        load_tile(st, cb + (int64_t)i0 * N + n0, N, l - i0, N - n0, vec_bc);
+        load_tile(st + kTileBytes, bb + (int64_t)jt * kCols * N + n0, N,
+                  l - jt * kCols, N - n0, vec_bc);
+      }
+      cp_async_commit();
+    };
+    __syncthreads();                       // the ring's last readers done
+    g_issue(0);
+    float acc[8][4];                       // G: acc[0 .. 3]; Y: all
+    for (int k = 0; k < gsteps; ++k) {
+      g_issue(k + 1);
+      cp_async_wait<1>();
+      __syncthreads();                     // step k's chunks in
+      const int n0 = (k % n_nk) * kWide;
+      if (n0 == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      }
+      const uint32_t cs = smem_addr(ring + 2 * (k & 1) * kTileBytes);
+      const uint32_t bs = cs + kTileBytes;
+#pragma unroll
+      for (int ks = 0; ks < kWide / 16; ++ks) {
+        if (n0 + 16 * ks >= N) break;
+        uint32_t af[4];
+        ldmatrix_x4(af, cs + ((grp * 16 + (lane & 7) +
+                               ((lane >> 3) & 1) * 8) * kLd +
+                              16 * ks + (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int np = 2 * slot + q;     // 16 columns: n8 tiles 2q, 2q+1
+          uint32_t bf[4];
+          ldmatrix_x4(bf, bs + ((16 * np + (lane & 7) + (lane >> 4) * 8) *
+                                    kLd +
+                                16 * ks + ((lane >> 3) & 1) * 8) * 2);
+          mma(acc[2 * q], af, bf[0], bf[1]);
+          mma(acc[2 * q + 1], af, bf[2], bf[3]);
+        }
+      }
+      if (n0 + kWide >= N) {               // the tile's last chunk: store G
+        const int jt = k / n_nk;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)     // slice 2 slot + nt / 2
+          *reinterpret_cast<float4*>(
+              g_w + (jt * kSlices + 2 * slot + nt / 2) * 256 + lane * 8 +
+              (nt % 2) * 4) =
+              make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+      }
+      __syncthreads();                     // read; step k + 2 reloads them
+    }
+
+    // ---- per head and P chunk: Y = (G o L) X over column tiles --------
+    // step s is (head pair hp, chunk pc, column tile jt), jt fastest:
+    // slot q's warps take head 2 hp + q.  The X tiles of step s + 1 load
+    // while step s computes.
+    const int n_hp = (heads + kSlots - 1) / kSlots;
+    const int nsteps = n_hp * n_pc * ncol;
+    auto issue = [&](int s) {
+      if (s < nsteps) {
+        const int jt = s % ncol, q = s / ncol;
+        const int p0 = (q % n_pc) * kWide, j0 = jt * kCols;
+        for (int sl = 0; sl < kSlots; ++sl) {
+          const int hh = (q / n_pc) * kSlots + sl;
+          if (hh < heads)
+            load_tile(ring + (s % kStages) * kStageBytes + sl * kTileBytes,
+                      x + ((cell * l + j0) * H + hg * kHeads + hh) *
+                              (int64_t)P + p0,
+                      (int64_t)H * P, l - j0, P - p0, vec_x);
+        }
+      }
+      cp_async_commit();
+    };
+    for (int s = 0; s < kStages - 1; ++s) issue(s);
+    float cum_i0 = 0.f, cum_i1 = 0.f;
+    const int gi0 = i0 + r0, gi1 = gi0 + 8;
+    for (int s = 0; s < nsteps; ++s) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();                     // tile s in; tile s - 1 read
+      issue(s + kStages - 1);
+      const int jt = s % ncol, q = s / ncol, pc = q % n_pc;
+      const int hh = (q / n_pc) * kSlots + slot;
+      if (hh >= heads) continue;           // an odd head count's last pair
+      const int j0 = jt * kCols, p0 = pc * kWide;
+      const int n_np = (min(kWide, P - p0) + 15) / 16;
+      const float* cum = cum_s + hh * l_pad;
+      if (jt == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+        cum_i0 = cum[gi0];
+        cum_i1 = cum[gi1];
+      }
+      const uint32_t xs =
+          smem_addr(ring + (s % kStages) * kStageBytes + slot * kTileBytes);
+      const float* g_t = g_w + jt * kSlices * 256 + lane * 8;
+      if (jt == it)               // slices 0 .. grp reach the warp's rows
+        y_tile_n<true>(n_np, acc, g_t, cum + j0, cum_i0, cum_i1, r0,
+                       grp + 1, xs, lane);
+      else
+        y_tile_n<false>(n_np, acc, g_t, cum + j0, cum_i0, cum_i1, r0,
+                        kSlices, xs, lane);
+      if (jt != ncol - 1) continue;
+      // ---- store Y's rows of this head and P chunk --------------------
+      float* yh = y + (cell * l * H + hg * kHeads + hh) * (int64_t)P;
+      const int64_t ys = (int64_t)H * P;               // row stride of y
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= 2 * n_np) break;
+        const int p = p0 + 8 * nt + 2 * t;
+        if (vec_y) {
+          // quad neighbours t, t ^ 1 swap halves: even t stores row g,
+          // odd t row g + 8, four columns each
+          const bool odd = t & 1;
+          const float q0 = __shfl_xor_sync(
+              0xffffffffu, odd ? acc[nt][0] : acc[nt][2], 1);
+          const float q1 = __shfl_xor_sync(
+              0xffffffffu, odd ? acc[nt][1] : acc[nt][3], 1);
+          const int row = odd ? gi1 : gi0, pv = odd ? p - 2 : p;
+          if (row < l && pv < P)
+            *reinterpret_cast<float4*>(yh + row * ys + pv) =
+                odd ? make_float4(q0, q1, acc[nt][2], acc[nt][3])
+                    : make_float4(acc[nt][0], acc[nt][1], q0, q1);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? gi0 : gi1, pe = p + (e & 1);
+            if (row < l && pe < P) yh[row * ys + pe] = acc[nt][e];
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+}
+
+int launch(const void* x, const void* a, const void* b, const void* c,
+           void* y, int B, int nc, int l, int H, int P, int N,
+           cudaStream_t stream) {
+  const int n_row_tiles = (l + kRows - 1) / kRows;
+  const size_t smem = (size_t)kStages * kStageBytes +
+                      (size_t)kGroups * n_row_tiles * kGTile * sizeof(float) +
+                      (size_t)kHeads * n_row_tiles * kRows * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  auto on16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const int vec = (P % 8 == 0 && on16(x) ? 1 : 0) |
+                  (N % 8 == 0 && on16(b) && on16(c) ? 2 : 0) |
+                  (P % 4 == 0 && on16(y) ? 4 : 0);
+  const int n_groups = (H + kHeads - 1) / kHeads;
+  const int64_t blocks =
+      (int64_t)B * nc * n_groups * ((n_row_tiles + 1) / 2);
+  ssd_chunk_tc<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)x, (const float*)a, (const __nv_bfloat16*)b,
+      (const __nv_bfloat16*)c, (float*)y, nc, l, H, P, N, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, b and c).
@@ -223,10 +739,10 @@ extern "C" int repro_ssd_chunk(const void* x, const void* a, const void* b,
                                int H, int P, int N, int dtype, void* stream) {
   if ((int64_t)B * nc * l * H * P == 0) return 0;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, a, b, c, y, B, nc, l, H, P, N,
-                                 (cudaStream_t)stream);
-  return launch<float>(x, a, b, c, y, B, nc, l, H, P, N,
-                       (cudaStream_t)stream);
+    return tc::launch(x, a, b, c, y, B, nc, l, H, P, N,
+                      (cudaStream_t)stream);
+  return cuda_core::launch<float>(x, a, b, c, y, B, nc, l, H, P, N,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -52,8 +52,12 @@ def ssd_chunk_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     c: torch.Tensor) -> torch.Tensor:
     """Intra-chunk SSD outputs y_diag [B, nc, l, H, P] in float32, with
     the kernel's decay ``exp(cum[i] - cum[j])`` (``cum = cumsum(a)``),
-    evaluated only on and below the diagonal."""
-    cum = torch.cumsum(a.float(), dim=-1)                    # [B,H,nc,l]
+    evaluated only on and below the diagonal.  ``cum`` is summed in
+    float64 and rounded once, as the kernel sums it (and as PyTorch's CPU
+    cumsum of float32 already does): two float32 scans in different
+    orders differ by ulps of |cum|, which under strong decay (|cum| in the
+    hundreds) move the decay by more than the kernel's tolerance."""
+    cum = torch.cumsum(a.double(), dim=-1).float()           # [B,H,nc,l]
     diff = cum[..., :, None] - cum[..., None, :]             # [B,H,nc,l,l]
     l = a.shape[-1]
     mask = torch.ones(l, l, dtype=torch.bool, device=a.device).tril()

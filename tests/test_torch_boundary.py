@@ -134,6 +134,27 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
                / chip_smoke.HBM_BYTES_PER_S * 1e3) < 1e-12
 
 
+def test_chip_smoke_merge_replay_rehearses_on_cpu(chip_smoke):
+    """The merges replayed at recorded sizes (the CPU lowering records
+    none): launches counted per kernel, bounds from the bytes."""
+    out = chip_smoke.phase_main(
+        "cpu", configs=[("sparse-add", 48, 150), ("sparse-add-3way", 48,
+                                                  150)])
+    assert out["merge_calls"] == []
+    calls = [("merge_path", (100, 125))] * 2 + [("merge_path", (0, 7)),
+                                                ("multi_merge_ranks",
+                                                 (40, 0, 60))]
+    slack = chip_smoke.phase_merge_slack("cpu", calls, reps=1)
+    mp, mm = slack["merge_path"], slack["multi_merge_ranks"]
+    assert (mp["launches"], mp["sizes"]) == (3, 2)
+    assert (mm["launches"], mm["sizes"]) == (1, 1)
+    assert mp["ms"] > 0 and mm["ms"] > 0
+    rate = chip_smoke.HBM_BYTES_PER_S / 1e3
+    assert abs(mp["bound_ms"] - 17 * (2 * 225 + 7) / rate) < 1e-12
+    assert abs(mm["bound_ms"] - (16 * 100 + 8 * 4) / rate) < 1e-12
+    assert mp["slack_ms"] == mp["ms"] - mp["bound_ms"]
+
+
 def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):
     """Phases 6-9 at the smoke config: the CPU takes the plain version
     of ``ssd_chunk``, so no launches are counted."""
@@ -171,6 +192,40 @@ def test_ssd_bound_at_the_prefill_shape(chip_smoke):
     ms32, by32 = chip_smoke.ssd_bound(shape, torch.float32)
     # the causal half of G and of Y: 8.89 GFLOP at the fp32 peak
     assert by32 == "operations" and abs(ms32 - 0.1327) < 0.0001
+
+
+def test_ssd_kernel_flops_at_the_prefill_shape(chip_smoke):
+    """The work the kernels do at the prefill shape: G once per 8-head
+    group over the 10 causal 64 x 64 tiles; bf16 Y over 136 16 x 16
+    slices a head, three passes; fp32 Y over the 10 whole tiles."""
+    import repro_torch.configs as C
+    shape = chip_smoke.ssd_shape(C.get("mamba2-1.3b"), 4, 2048)
+    g = 4 * 8 * 8 * 10 * 2 * 64 * 64 * 128
+    assert chip_smoke.ssd_kernel_flops(shape, torch.bfloat16) == \
+        g + 4 * 8 * 64 * 136 * 3 * 2 * 16 * 16 * 64
+    assert chip_smoke.ssd_kernel_flops(shape, torch.float32) == \
+        g + 4 * 8 * 64 * 10 * 2 * 64 * 64 * 64
+    # padding: N 40 -> 48 (bf16) / 64 (fp32), P 24 -> 32 / 64, one tile
+    assert chip_smoke.ssd_kernel_flops((1, 1, 16, 3, 24, 40),
+                                       torch.bfloat16) == \
+        2 * 64 * 64 * 48 + 3 * 10 * 3 * 2 * 16 * 16 * 32
+    assert chip_smoke.ssd_kernel_flops((1, 1, 16, 3, 24, 40),
+                                       torch.float32) == \
+        2 * 64 * 64 * 64 + 3 * 2 * 64 * 64 * 64
+
+
+def test_ssd_build_report_flags_spills(chip_smoke):
+    ok = ("ptxas info    : Compiling entry function 'k' for 'sm_90a'\n"
+          "ptxas info    : Function properties for k\n"
+          "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+          "loads\n"
+          "ptxas info    : Used 114 registers, used 1 barriers\n")
+    lines = chip_smoke.ssd_build_report({"ssd_chunk": ok})
+    assert len(lines) == 3 and "114 registers" in lines[-1]
+    assert chip_smoke.ssd_build_report({}) == []
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.ssd_build_report({"ssd_chunk": ok.replace(
+            "0 bytes spill stores", "8 bytes spill stores")})
 
 
 def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):

@@ -90,10 +90,15 @@ def test_simulate_on_card_matches_cpu(cuda_device, design):
 
 
 #: (B, nc, l, H, P, N): ragged row tiles (l 16, 100), the reference's
-#: test shapes, head groups that do not divide H, P above one tile
+#: test shapes, head groups that do not divide H, P above one tile, N and
+#: P off the tensor-core tiles (200, 40), P and N off 16-byte rows (21,
+#: 37: element-wise loads and stores), and Mamba2-1.3B's prefill call at
+#: batch 1
 SSD_CASES = [(1, 2, 16, 16, 16, 16), (2, 1, 100, 3, 24, 40),
              (1, 2, 64, 2, 32, 16), (2, 3, 128, 4, 64, 32),
-             (1, 1, 256, 8, 64, 128), (1, 2, 512, 9, 96, 64)]
+             (1, 1, 256, 8, 64, 128), (1, 2, 512, 9, 96, 64),
+             (1, 2, 128, 5, 40, 200), (1, 1, 100, 3, 21, 37),
+             (1, 8, 256, 64, 64, 128)]
 
 
 @pytest.mark.cuda
@@ -115,6 +120,42 @@ def test_ssd_chunk_matches_plain_on_card(cuda_device, shape, dtype):
     got = ssd_chunk(x, a, b, c)
     torch.cuda.synchronize()
     assert ssd_chunk.launches == before + 1
+    torch.testing.assert_close(got, ssd_chunk_plain(x, a, b, c),
+                               rtol=2e-4, atol=2e-4)
+
+
+#: strong decay, a uniform in (-5, 0]: at l 256 most of L underflows to 0
+SSD_DECAY_CASES = [(1, 2, 256, 8, 64, 128), (2, 1, 100, 3, 24, 40),
+                   (1, 1, 512, 2, 32, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_DECAY_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssd_chunk_strong_decay_on_card(cuda_device, shape, dtype):
+    """Decay down to exp(-5) a step: the entries of L that underflow are
+    zeros, nothing overflows, and kernel and plain version agree at the
+    same 2e-4."""
+    B, nc, l, H, P, N = shape
+    gen = torch.Generator(cuda_device).manual_seed(4)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    x = randn(B, nc, l, H, P).to(dtype)
+    a = -5 * torch.rand(B, H, nc, l, generator=gen, device=cuda_device)
+    b, c = randn(B, nc, l, N).to(dtype), randn(B, nc, l, N).to(dtype)
+    cum = torch.cumsum(a.double(), -1)
+    causal = torch.ones(l, l, dtype=torch.bool, device=cuda_device).tril()
+    under = (cum[..., :, None] - cum[..., None, :] < -104)[..., causal]
+    if l >= 256:
+        assert float(under.double().mean()) > 0.5
+    before = ssd_chunk.launches
+    got = ssd_chunk(x, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ssd_chunk_plain(x, a, b, c),
                                rtol=2e-4, atol=2e-4)
 
