@@ -8,8 +8,9 @@ test can rehearse them at a tiny size with the kernels' plain versions:
 
   1. device      -- the card's name and power limit;
   2. build       -- compile the CUDA kernels from ``src/repro_torch/kernels``
-                    (one nvcc per source, all at once) and print nvcc's
-                    register / shared-memory lines;
+                    (one nvcc per source, all at once), print nvcc's
+                    register / spill / shared-memory lines and fail if any
+                    kernel spills;
   3. kernels     -- each seam kernel against its plain version (exact) at
                     the simulator's shapes and on four adversarial key
                     domains, timed beside its bytes bound and one PyTorch
@@ -21,14 +22,14 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     once with the hand kernels and once with the plain
                     versions on the card: identical outputs, counters and
                     Reports, no fallback, no downgrade, every seam kernel
-                    launched; then ``search``, ``merge_path`` and
-                    ``multi_merge_ranks`` replayed at the sizes of their
-                    launches there, timed beside their bounds;
+                    launched; then ``search`` (sorted and unsorted calls
+                    apart), ``merge_path`` and ``multi_merge_ranks``
+                    replayed at the sizes of their launches there, timed
+                    beside their bounds;
   6. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
                     reference's test shapes, timed beside its bound
-                    (TFLOP/s and share of it), with nvcc's register and
-                    spill report of the kernel;
+                    (TFLOP/s and share of it);
   7. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
                     batch 4 x 2048 tokens, with the kernel and with stage
                     (1) on the plain version: logits and greedy tokens
@@ -44,9 +45,10 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     tail), timed beside its bound (TFLOP/s and share of
                     it) and SDPA;
  11. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
-                    the reference's test shapes and an 8192 x 8192 A at 30%
-                    tile density, timed beside its bound and a dense
-                    ``torch.matmul``;
+                    the reference's test shapes (all four dtype pairs) and
+                    an 8192 x 8192 A at 30% tile density (fp32 and bf16),
+                    there timed beside its route's bound and a dense
+                    ``torch.matmul`` in the same dtype;
  12. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
                     at the reference bench's shapes against its oracle (the
                     path that launches ``block_sparse_matmul``);
@@ -112,6 +114,8 @@ from repro_torch.obs.spans import trace_session  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # tensor cores, bf16
               torch.float32: 67e12}        # CUDA cores, fp32
+#: TF32 tensor cores, dense
+TF32_FLOPS = 495e12
 
 COUNTERS = ("touch_counts", "iter_counts", "compute_counts",
             "isect_steps", "isect_matches", "advances", "merges")
@@ -225,14 +229,34 @@ def phase_device() -> Tuple[str, str]:
     return name, smi
 
 
+def build_report(logs: Dict[str, str]) -> List[str]:
+    """nvcc's ``-Xptxas -v`` lines of every kernel library built (entry,
+    registers, spills, shared memory), each prefixed with its source;
+    raises if a function spills."""
+    lines = []
+    for name, out in logs.items():
+        function = ""
+        for ln in out.splitlines():
+            ln = ln.strip()
+            if "Function properties for" in ln:
+                function = ln.split("Function properties for")[-1].strip()
+            if not ("entry function" in ln or "registers" in ln
+                    or "spill" in ln or "smem" in ln):
+                continue
+            lines.append(f"{name}: {ln}")
+            if "spill" in ln and ("0 bytes spill stores" not in ln
+                                  or "0 bytes spill loads" not in ln):
+                raise AssertionError(f"{name}.cu spills registers in "
+                                     f"{function or 'a function'}: {ln}")
+    return lines
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    for name, out in build.BUILD_LOGS.items():
-        for line in out.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    for line in build_report(build.BUILD_LOGS):
+        log(f"  {line}")
 
 
 # ---------------------------------------------------------------------- #
@@ -610,15 +634,19 @@ def phase_search_slack(device, calls, reps: int = 5,
                        seed: int = 3) -> Dict:
     """``search`` at the sizes of the main phase's own launches: each
     (keys, probes, sorted) case replayed on random keys (half the probes
-    hit) and timed beside its bytes bound.  Returns the launches and the
-    sums over them of time, bound and time - bound (ms)."""
+    hit) and timed beside its bytes bound.  Returns, for the sorted
+    calls, the unsorted ones (``lookup_keys``) and all of them, the
+    launches and the sums over them of time, bound and time - bound
+    (ms)."""
     device = torch.device(device)
     gen = torch.Generator(device).manual_seed(seed)
     cases: Dict[Tuple[int, int, bool], int] = {}
     for c in calls:
         if c[1]:                                # the wrapper's launches
             cases[c] = cases.get(c, 0) + 1
-    total = {"launches": 0, "ms": 0.0, "bound_ms": 0.0}
+    out = {part: {"launches": 0, "sizes": 0, "ms": 0.0, "bound_ms": 0.0}
+           for part in ("sorted", "unsorted", "total")}
+    sizes = []
     for (m, n, is_sorted), count in sorted(cases.items()):
         span = 4 * max(m, 1)
 
@@ -636,16 +664,24 @@ def phase_search_slack(device, calls, reps: int = 5,
         if is_sorted:
             probes = torch.sort(probes).values
         ms = _time_ms(lambda: search(hay, probes), device, reps)
-        total["launches"] += count
-        total["ms"] += count * ms
-        total["bound_ms"] += count * 8 * (m + 2 * n) \
-            / HBM_BYTES_PER_S * 1e3
-    total["slack_ms"] = total["ms"] - total["bound_ms"]
-    log(f"search at the main phase's sizes: {total['launches']} launches "
-        f"({len(cases)} sizes), {total['ms']:.4f} ms in all, bound "
-        f"{total['bound_ms']:.4f} ms, launches x (time - bound) "
-        f"{total['slack_ms']:.4f} ms")
-    return total
+        bound = 8 * (m + 2 * n) / HBM_BYTES_PER_S * 1e3
+        for part in ("sorted" if is_sorted else "unsorted", "total"):
+            rec = out[part]
+            rec["launches"] += count
+            rec["sizes"] += 1
+            rec["ms"] += count * ms
+            rec["bound_ms"] += count * bound
+        sizes.append((count * ms, m, n, count, is_sorted))
+    for part, rec in out.items():
+        rec["slack_ms"] = rec["ms"] - rec["bound_ms"]
+        log(f"search at the main phase's sizes, {part}: {rec['launches']} "
+            f"launches ({rec['sizes']} sizes), {rec['ms']:.4f} ms in all, "
+            f"bound {rec['bound_ms']:.4f} ms, launches x (time - bound) "
+            f"{rec['slack_ms']:.4f} ms")
+    log("  the largest (keys, probes, sorted, launches: ms in all): "
+        + ", ".join(f"({m}, {n}, {srt}, {c}: {t:.4f})"
+                    for t, m, n, c, srt in sorted(sizes, reverse=True)[:5]))
+    return out
 
 
 def merge_bound_ms(name: str, sizes: Tuple[int, ...]) -> float:
@@ -780,19 +816,6 @@ def ssd_kernel_flops(shape, dtype) -> int:
     return g + y
 
 
-def ssd_build_report(logs: Dict[str, str]) -> List[str]:
-    """nvcc's ``-Xptxas -v`` lines for ``ssd_chunk.cu``'s kernels (entry,
-    registers, spills); raises if one spills."""
-    lines = [ln.strip() for ln in logs.get("ssd_chunk", "").splitlines()
-             if "entry function" in ln or "registers" in ln or "spill" in ln
-             or "smem" in ln]
-    for ln in lines:
-        if "spill" in ln and ("0 bytes spill stores" not in ln
-                              or "0 bytes spill loads" not in ln):
-            raise AssertionError(f"ssd_chunk spills registers: {ln}")
-    return lines
-
-
 def _ssd_inputs(shape, dtype, device: torch.device, seed: int):
     B, nc, l, H, P, N = shape
     gen = torch.Generator(device).manual_seed(seed)
@@ -818,8 +841,6 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
     if prefill_shape is None:
         prefill_shape = ssd_shape(TC.get(MODEL_ARCH), PREFILL_BATCH,
                                   PREFILL_SEQ)
-    for line in ssd_build_report(build.BUILD_LOGS):
-        log(f"ssd_kernel build: {line}")
     recs = {}
     for shape in (prefill_shape,) + tuple(shapes):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1082,18 +1103,31 @@ def phase_flash_kernel(device, prefill_shape=None, shapes=ATTN_SHAPES,
 
 
 def bsmm_bound(n_tiles: int, bm: int, bk: int, K: int, N: int, m: int,
-               dtype) -> Tuple[float, str]:
+               a_dtype, b_dtype=None) -> Tuple[float, str, str]:
     """The least time (ms) of one ``block_sparse_matmul`` call over
-    ``n_tiles`` nonzero tiles: the tiles, their int32 coordinates and B
-    read once and Z (fp32) written once, against 2 bm bk N operations a
-    tile at the fp32 CUDA-core peak (the kernel's products are fp32)."""
-    es = torch.empty(0, dtype=dtype).element_size()
-    nbytes = es * (n_tiles * bm * bk + K * N) + 8 * n_tiles + 4 * m * N
+    ``n_tiles`` nonzero tiles at the kernel's accuracy, what sets it and
+    the route: the tiles, their int64 coordinates and B read once and Z
+    (fp32) written once, against 2 bm bk N operations a tile on tensor
+    cores.  bf16 x bf16 products are exact, one pass at the bf16 peak;
+    an fp32 operand takes 3xTF32 (two TF32 passes when the other is
+    bf16, which TF32 holds exactly) at the TF32 peak."""
+    b_dtype = a_dtype if b_dtype is None else b_dtype
+    es_a = torch.empty(0, dtype=a_dtype).element_size()
+    es_b = torch.empty(0, dtype=b_dtype).element_size()
+    nbytes = es_a * n_tiles * bm * bk + es_b * K * N + 8 * n_tiles \
+        + 4 * m * N
     flops = 2 * n_tiles * bm * bk * N
+    fp32 = (a_dtype == torch.float32) + (b_dtype == torch.float32)
+    if fp32 == 0:
+        t_ops, route = flops / PEAK_FLOPS[torch.bfloat16], "bf16 tensor cores"
+    else:
+        passes = 1 + fp32
+        t_ops, route = passes * flops / TF32_FLOPS, \
+            f"{passes}xTF32 tensor cores"
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops *= 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), route
 
 
 def _bsmm_inputs(case, device: torch.device, seed: int):
@@ -1111,21 +1145,28 @@ def _bsmm_inputs(case, device: torch.device, seed: int):
     return a, tiles, rows, cols, b
 
 
+#: the (A tiles, B) dtype pairs the kernel takes
+BSMM_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+
+
 def phase_bsmm_kernel(device, card_case=BSMM_CARD, shapes=BSMM_SHAPES,
                       reps: int = 10, seed: int = 6, card: str = "") -> Dict:
     """``block_sparse_matmul`` against ``block_sparse_matmul_plain``
-    (|err| <= BSMM_RTOL sqrt(K) max |Z|) at the reference's shapes (fp32
-    and bf16 tiles) and at ``card_case`` (fp32), there timed beside its
-    bound, the plain version's time and a dense fp32 ``torch.matmul`` of
-    the masked A (TF32 off).  Returns the card-case record."""
+    (|err| <= BSMM_RTOL sqrt(K) max |Z|) at the reference's shapes (all
+    four dtype pairs) and at ``card_case`` (fp32 and bf16), there timed
+    beside its route's bound, the plain version's time and a dense
+    ``torch.matmul`` of the masked A in the same dtype (fp32 with TF32
+    off).  Returns the fp32 card-case record, with the bf16 one under
+    ``bf16``."""
     device = torch.device(device)
-    rec = None
+    recs = {}
     for case in (card_case,) + tuple(shapes):
         M, K, N, bm, bk, bn, _ = case
         a, tiles, rows, cols, b = _bsmm_inputs(case, device, seed)
-        for dtype in ((torch.float32,) if case == card_case
-                      else (torch.float32, torch.bfloat16)):
-            t, bb = tiles.to(dtype), b.to(dtype)
+        pairs = BSMM_DTYPES[:2] if case == card_case else BSMM_DTYPES
+        for dta, dtb in pairs:
+            t, bb = tiles.to(dta), b.to(dtb)
             got = block_sparse_matmul(t, rows, cols, bb, m=M, bn=bn)
             want = block_sparse_matmul_plain(t, rows, cols, bb, M)
             limit = BSMM_RTOL * K ** 0.5 * max(1.0, float(want.abs().max()))
@@ -1133,15 +1174,15 @@ def phase_bsmm_kernel(device, card_case=BSMM_CARD, shapes=BSMM_SHAPES,
             if got.shape != want.shape or got.dtype != torch.float32 or \
                     not err <= limit:
                 raise AssertionError(f"block_sparse_matmul != plain at "
-                                     f"{case} {dtype}: max abs err {err} "
-                                     f"(limit {limit})")
+                                     f"{case} {dta}/{dtb}: max abs err "
+                                     f"{err} (limit {limit})")
             del got, want
             if case != card_case:
-                log(f"bsmm_kernel {case} {dtype}: max abs err {err:.3g}")
+                log(f"bsmm_kernel {case} {dta}/{dtb}: max abs err {err:.3g}")
                 continue
             n_real = int(t.flatten(1).ne(0).any(1).sum())
-            bound, by = bsmm_bound(n_real, bm, bk, K, N, M, dtype)
-            a_dev = torch.from_numpy(a).to(device)
+            bound, by, route = bsmm_bound(n_real, bm, bk, K, N, M, dta, dtb)
+            a_dev = torch.from_numpy(a).to(device, dta)
             rec = {"name": "block_sparse_matmul", "route": "cuda",
                    "source": KERNEL_INFO["block_sparse_matmul"][0],
                    "replaces": KERNEL_INFO["block_sparse_matmul"][1],
@@ -1150,16 +1191,21 @@ def phase_bsmm_kernel(device, card_case=BSMM_CARD, shapes=BSMM_SHAPES,
                        t, rows, cols, bb, m=M, bn=bn), device, reps),
                    "plain_ms": _time_ms(lambda: block_sparse_matmul_plain(
                        t, rows, cols, bb, M), device, reps),
-                   "bound_ms": bound, "bound_by": by,
+                   "bound_ms": bound, "bound_by": by, "bound_route": route,
                    "library_ms": _time_ms(lambda: torch.matmul(a_dev, bb),
                                           device, reps)}
-            log(f"bsmm_kernel {case} {dtype} on {card or device}: "
+            log(f"bsmm_kernel {case} {dta} on {card or device}: "
                 f"{len(t)} tiles ({n_real} nonzero), max abs err {err:.3g} "
                 f"(limit {limit:.3g}); {rec['ms']:.4f} ms (plain "
                 f"{rec['plain_ms']:.4f}, dense matmul "
-                f"{rec['library_ms']:.4f}, bound {bound:.4f} by {by}, "
-                f"{bound / rec['ms']:.1%} of it)")
+                f"{rec['library_ms']:.4f}, bound {bound:.4f} by {by} on "
+                f"{route}, {bound / rec['ms']:.1%} of it)")
+            recs[dta] = rec
             del a_dev
+    rec = recs[torch.float32]
+    rec["bf16"] = {k: v for k, v in recs[torch.bfloat16].items()
+                   if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "bound_route", "library_ms")}
     return rec
 
 
@@ -1199,8 +1245,9 @@ def main() -> int:
         rec["launches"] = main_run["launches"][rec["name"]]
         rec.pop("shapes")
     slack = phase_search_slack("cuda", main_run["search_calls"])
-    if slack["launches"] != main_run["launches"]["search"]:
-        raise AssertionError(f"recorded {slack['launches']} search "
+    next(r for r in kernels if r["name"] == "search")["replay"] = slack
+    if slack["total"]["launches"] != main_run["launches"]["search"]:
+        raise AssertionError(f"recorded {slack['total']['launches']} search "
                              f"launches, counted "
                              f"{main_run['launches']['search']}")
     merges = phase_merge_slack("cuda", main_run["merge_calls"])

@@ -112,9 +112,12 @@ def block_sparse_matmul(a_tiles: torch.Tensor, rows: torch.Tensor,
 
     a_tiles: [T, bm, bk] tiles sorted by (row, col), as ``compact_tiles``
     gives them; rows, cols: [T] tile indices; b: [K, N]; ``m`` the rows
-    of A.  ``bn`` sets the kernel's column block (128 from 128 up, else
-    64), as it sets the Pallas kernel's; a tile-row that has no tile
-    comes out zero."""
+    of A.  ``bn``, the Pallas kernel's column block, is kept for its
+    signature: the CUDA kernel takes 128 columns a CTA and masks the
+    ragged edge.  fp32 operands go through 3xTF32 tensor-core products
+    (two passes when the other operand is bf16), bf16 x bf16 through one
+    pass of bf16 products (see the kernel's note); a tile-row that has no
+    tile comes out zero."""
     _check(a_tiles, rows, cols, b, m)
     if a_tiles.device.type == "cpu":
         return block_sparse_matmul_plain(a_tiles, rows, cols, b, m)
@@ -123,7 +126,6 @@ def block_sparse_matmul(a_tiles: torch.Tensor, rows: torch.Tensor,
                          f"{a_tiles.device}")
     T, bm, bk = a_tiles.shape
     K, N = b.shape
-    bn = min(bn, N)
     n_row = -(-m // bm)
     z = torch.empty((m, N), dtype=torch.float32, device=b.device)
     if z.numel() == 0:
@@ -141,8 +143,7 @@ def block_sparse_matmul(a_tiles: torch.Tensor, rows: torch.Tensor,
     build.check("block_sparse_matmul", fn(
         a_tiles.data_ptr(), rowptr.data_ptr(), cols.data_ptr(), b.data_ptr(),
         z.data_ptr(), n_row, m, K, N, bm, bk, 128 if bm % 128 == 0 else 64,
-        128 if bn >= 128 else 64, _DTYPES[a_tiles.dtype], _DTYPES[b.dtype],
-        stream))
+        128, _DTYPES[a_tiles.dtype], _DTYPES[b.dtype], stream))
     return z
 
 

@@ -198,7 +198,10 @@ flash_attention_kernel(const float* __restrict__ q,
 
     // scores of rows ty + 16 r, keys tx + 16 c
     float s[4][4] = {};
-#pragma unroll 4
+    // not unrolled: at d 128, 4 iterations in flight took the kernel past
+    // 128 registers (2 CTAs an SM) and spilled 24 bytes; unroll 1 spills
+    // nothing and costs about 3% (PERF.md)
+#pragma unroll 1
     for (int d0 = 0; d0 < D; d0 += 4) {
       float4 qv[4], kv[4];
 #pragma unroll

@@ -127,11 +127,34 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
     assert out["search_calls"] == []
     slack = chip_smoke.phase_search_slack(
         "cpu", [(100, 50, True)] * 2 + [(80, 30, False), (0, 5, True),
-                                        (7, 0, True)], reps=1)
+                                        (7, 0, True)], reps=1)["total"]
     assert slack["launches"] == 4 and slack["ms"] > 0
     # keys read once, probes read and positions written once, 8 bytes each
     assert abs(slack["bound_ms"] - 8 * (2 * 200 + 140 + 10)
                / chip_smoke.HBM_BYTES_PER_S * 1e3) < 1e-12
+
+
+def test_chip_smoke_search_replay_splits_sorted_and_unsorted(chip_smoke):
+    """The search replay sums sorted calls (intersections, union
+    gathers) and unsorted ones (lookup_keys) apart and together; calls
+    without probes launch nothing and are left out."""
+    calls = [(100, 50, True)] * 2 + [(80, 30, False)] * 3 + \
+        [(0, 5, True), (7, 0, True), (64, 64, False)]
+    out = chip_smoke.phase_search_slack("cpu", calls, reps=1)
+    assert set(out) == {"sorted", "unsorted", "total"}
+    got = {part: (rec["launches"], rec["sizes"]) for part, rec in out.items()}
+    assert got == {"sorted": (3, 2), "unsorted": (4, 2), "total": (7, 4)}
+    rate = chip_smoke.HBM_BYTES_PER_S / 1e3
+    assert abs(out["sorted"]["bound_ms"]
+               - 8 * (2 * (100 + 100) + 10) / rate) < 1e-12
+    assert abs(out["unsorted"]["bound_ms"]
+               - 8 * (3 * (80 + 60) + 64 + 128) / rate) < 1e-12
+    for key in ("launches", "ms", "bound_ms", "slack_ms"):
+        assert out["total"][key] == pytest.approx(
+            out["sorted"][key] + out["unsorted"][key], rel=1e-12)
+    for rec in out.values():
+        assert rec["ms"] > 0
+        assert rec["slack_ms"] == rec["ms"] - rec["bound_ms"]
 
 
 def test_chip_smoke_merge_replay_rehearses_on_cpu(chip_smoke):
@@ -214,18 +237,48 @@ def test_ssd_kernel_flops_at_the_prefill_shape(chip_smoke):
         2 * 64 * 64 * 64 + 3 * 2 * 64 * 64 * 64
 
 
+def _ptxas(fn, regs, stores=0, loads=0):
+    return (f"ptxas info    : Compiling entry function '{fn}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {fn}\n"
+            f"    {stores} bytes stack frame, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+
 def test_ssd_build_report_flags_spills(chip_smoke):
-    ok = ("ptxas info    : Compiling entry function 'k' for 'sm_90a'\n"
-          "ptxas info    : Function properties for k\n"
-          "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
-          "loads\n"
-          "ptxas info    : Used 114 registers, used 1 barriers\n")
-    lines = chip_smoke.ssd_build_report({"ssd_chunk": ok})
+    ok = _ptxas("k", 114)
+    lines = chip_smoke.build_report({"ssd_chunk": ok})
     assert len(lines) == 3 and "114 registers" in lines[-1]
-    assert chip_smoke.ssd_build_report({}) == []
+    assert all(ln.startswith("ssd_chunk: ") for ln in lines)
+    assert chip_smoke.build_report({}) == []
     with pytest.raises(AssertionError, match="spills"):
-        chip_smoke.ssd_build_report({"ssd_chunk": ok.replace(
+        chip_smoke.build_report({"ssd_chunk": ok.replace(
             "0 bytes spill stores", "8 bytes spill stores")})
+
+
+# nvcc -Xptxas -v as a library of two kernels prints it: the entry line,
+# the function's properties, its registers, per kernel
+_CLEAN = _ptxas("_Z6kernelILi64EEvPf", 96) + _ptxas("_Z6kernelILi128EEvPf",
+                                                    128)
+_SPILLING = _ptxas("_Z6kernelILi64EEvPf", 96) + \
+    _ptxas("_Z6kernelILi128EEvPf", 128, stores=24, loads=36)
+
+
+def test_build_report_checks_every_source(chip_smoke):
+    """Every library's lines are reported and checked: a spill in any
+    source stops the run, naming the source and the function."""
+    logs = {name: _CLEAN for name in chip_smoke.build.SOURCES}
+    lines = chip_smoke.build_report(logs)
+    assert len(lines) == 6 * len(chip_smoke.build.SOURCES)
+    assert {ln.split(":")[0] for ln in lines} == \
+        set(chip_smoke.build.SOURCES)
+    for name in chip_smoke.build.SOURCES:
+        bad = dict(logs, **{name: _SPILLING})
+        with pytest.raises(AssertionError,
+                           match=f"{name}.cu spills registers in "
+                                 f"_Z6kernelILi128EEvPf"):
+            chip_smoke.build_report(bad)
 
 
 def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
@@ -241,9 +294,15 @@ def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
     bsmm = chip_smoke.phase_bsmm_kernel(
         "cpu", card_case=(256, 256, 64, 64, 64, 64, 0.3),
         shapes=chip_smoke.BSMM_SHAPES[-2:], reps=1)
+    assert set(flash) == keys
+    # the block-sparse row adds its bound's route and its bf16 card case
+    assert set(bsmm) == keys | {"bound_route", "bf16"}
+    assert bsmm["bound_route"] == "3xTF32 tensor cores"
+    assert bsmm["bf16"]["bound_route"] == "bf16 tensor cores"
+    assert bsmm["bf16"]["max_abs_err"] == 0.0
     for rec, name in ((flash, "flash_attention"),
                       (bsmm, "block_sparse_matmul")):
-        assert set(rec) == keys and rec["name"] == name
+        assert rec["name"] == name
         assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
         assert rec["library_ms"] > 0 and (ROOT / rec["source"]).exists()
     launches = chip_smoke.phase_kernels_bench("cpu")
@@ -261,8 +320,9 @@ def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
 def test_dense_bounds_at_the_card_shapes(chip_smoke):
     """The bounds the kernel line reports: flash attention at the
     Qwen2-7B prefill shape, about 120 GFLOP at the bf16 peak against
-    134 MB; the card-sized block-sparse case, 2 bm bk N a tile at the
-    fp32 peak against about 147 MB."""
+    134 MB; the card-sized block-sparse case, 2 bm bk N a tile by its
+    route: three TF32 passes at the TF32 peak in fp32 against about
+    147 MB, one pass at the bf16 peak in bf16 against 90.6 MB."""
     import repro_torch.configs as C
     shape = chip_smoke.attn_shape(C.get("qwen2-7b"), 4, 2048)
     assert shape == (4, 28, 4, 2048, 2048, 128)
@@ -270,12 +330,26 @@ def test_dense_bounds_at_the_card_shapes(chip_smoke):
     assert by == "operations" and abs(ms - 0.1217) < 0.0001
     full, _ = chip_smoke.flash_bound(shape, torch.bfloat16, causal=False)
     assert abs(full / ms - 2 * 2048 / 2049) < 1e-9
-    ms, by = chip_smoke.bsmm_bound(1229, 128, 128, 8192, 1024, 8192,
-                                   torch.float32)
-    assert by == "operations" and abs(ms - 0.6155) < 0.0001
+    ms, by, route = chip_smoke.bsmm_bound(1229, 128, 128, 8192, 1024, 8192,
+                                          torch.float32)
+    assert by == "operations" and abs(ms - 0.2499) < 0.0001
+    assert route == "3xTF32 tensor cores"
     nbytes = 4 * (1229 * 128 * 128 + 8192 * 1024) + 8 * 1229 \
         + 4 * 8192 * 1024
     assert abs(nbytes / 1e6 - 147.7) < 0.1
+    ms, by, route = chip_smoke.bsmm_bound(1229, 128, 128, 8192, 1024, 8192,
+                                          torch.bfloat16)
+    assert by == "operations" and abs(ms - 0.0417) < 0.0001
+    assert route == "bf16 tensor cores"
+    nbytes = 2 * (1229 * 128 * 128 + 8192 * 1024) + 8 * 1229 \
+        + 4 * 8192 * 1024
+    assert abs(nbytes / 1e6 - 90.6) < 0.1
+    # bf16 is exact in TF32: a mixed pair takes two passes
+    for pair in ((torch.bfloat16, torch.float32),
+                 (torch.float32, torch.bfloat16)):
+        ms, _, route = chip_smoke.bsmm_bound(1229, 128, 128, 8192, 1024,
+                                             8192, *pair)
+        assert route == "2xTF32 tensor cores" and abs(ms - 0.1666) < 0.0001
 
 
 def test_chip_smoke_needs_a_card(chip_smoke, monkeypatch, capsys):

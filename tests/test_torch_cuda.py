@@ -340,6 +340,173 @@ def test_block_sparse_matmul_matches_plain_on_card(cuda_device, case, dtype):
                                atol=1e-4 * K ** 0.5 * scale)
 
 
+#: (A tiles, B) dtype pairs the kernel takes
+BSMM_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+#: (M, K, N, bm, bk, tile density, scale): tile-rows of 40+ tiles, K not a
+#: multiple of bk (the last tile column reads past B's last row), values
+#: near 1e4, and a ragged N with bm 192 under bf16 rows
+BSMM_STRESS = [(256, 3072, 256, 128, 64, 0.95, 1.0),
+               (192, 200, 136, 64, 64, 0.8, 1.0),
+               (320, 300, 100, 64, 128, 0.7, 1.0),
+               (256, 512, 256, 128, 128, 0.6, 1e4),
+               (384, 160, 100, 192, 32, 0.5, 1e4)]
+
+
+def _ids(p):
+    return "/".join(str(d).split(".")[-1] for d in p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BSMM_STRESS, ids=str)
+@pytest.mark.parametrize("pair", BSMM_PAIRS, ids=_ids)
+def test_block_sparse_matmul_dtype_pairs_on_card(cuda_device, case, pair):
+    """Every dtype pair on the tensor-core routes (3xTF32, 2xTF32, bf16)
+    within the unchanged limit 1e-4 sqrt(K) max |Z|; K is padded to
+    whole tiles in A and not in B."""
+    M, K, N, bm, bk, density, scale = case
+    rng = np.random.default_rng(4)
+    kp = -(-K // bk) * bk
+    a = np.zeros((M, kp), np.float32)
+    a[:, :K] = rng.uniform(0.5, 1.5, (M, K)) * rng.choice([-1, 1], (M, K)) \
+        * scale
+    mask = rng.random((M // bm, kp // bk)) < density
+    mask[0] = True                               # one full tile-row
+    a *= np.kron(mask, np.ones((bm, bk), np.float32))
+    tiles, rows, cols = (torch.from_numpy(x).to(cuda_device)
+                         for x in compact_tiles(a, bm, bk))
+    tiles = tiles.to(pair[0])
+    b = torch.from_numpy((rng.uniform(0.5, 1.5, (K, N)) *
+                          rng.choice([-1, 1], (K, N)) * scale)
+                         .astype(np.float32)).to(cuda_device, pair[1])
+    got = block_sparse_matmul(tiles, rows, cols, b, m=M)
+    want = block_sparse_matmul_plain(tiles, rows, cols, b, M)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert int(torch.bincount(rows.long()).max()) >= min(40, kp // bk)
+    scale_z = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * K ** 0.5 * scale_z)
+
+
+@pytest.mark.cuda
+def test_block_sparse_matmul_empty_tile_rows_on_card(cuda_device):
+    """Tile-rows without a tile come out zero, without a padding tile."""
+    rng = np.random.default_rng(5)
+    tiles = torch.from_numpy(rng.standard_normal((3, 64, 64))
+                             .astype(np.float32)).to(cuda_device)
+    rows = torch.tensor([1, 1, 3], device=cuda_device)
+    cols = torch.tensor([0, 2, 1], device=cuda_device)
+    b = torch.from_numpy(rng.standard_normal((192, 128)).astype(np.float32)) \
+        .to(cuda_device)
+    got = block_sparse_matmul(tiles, rows, cols, b, m=320)
+    want = block_sparse_matmul_plain(tiles, rows, cols, b, 320)
+    assert torch.equal(got[:64], torch.zeros_like(got[:64]))
+    assert torch.equal(got[128:192], torch.zeros_like(got[128:192]))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * 192 ** 0.5
+                               * float(want.abs().max()))
+
+
+def _search_case(name, rng, device):
+    """(hay, probes) of one named adversarial case for ``search``: 2,048
+    probes make a block of the kernel, 4,096 keys a window chunk."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)) \
+            .to(device)
+
+    def keys(lo, hi, n):
+        return np.unique(rng.integers(lo, hi, n))
+
+    if name == "wide_window":        # sorted probes sparse in 2M keys
+        hay = keys(0, 1 << 40, 2_000_000)
+        probes = np.sort(np.concatenate([rng.choice(hay, 3000),
+                                         rng.integers(0, 1 << 40, 3000)]))
+    elif name == "chunked_window":   # windows of 2-4 chunks
+        hay = keys(0, 1 << 30, 300_000)
+        probes = np.sort(np.concatenate([rng.choice(hay, 20_000),
+                                         rng.integers(0, 1 << 30, 20_000)]))
+        probes = probes[::3]
+    elif name == "straddle":         # equal runs across block edges
+        hay = keys(0, 50_000, 20_000)
+        probes = np.sort(np.repeat(rng.choice(hay, 700), 13))
+    elif name == "duplicates":
+        hay = keys(0, 1000, 300)
+        probes = np.sort(rng.choice(hay, 10_000))
+    elif name == "outside":          # below and above every key
+        hay = keys(1000, 2000, 500)
+        probes = np.sort(np.concatenate([rng.integers(-5000, 1000, 3000),
+                                         rng.choice(hay, 3000),
+                                         rng.integers(2000, 9000, 3000)]))
+    elif name == "i64_edges":        # keys near -2^62 and 2^62
+        e = 1 << 62
+        hay = np.unique(np.concatenate([rng.integers(-e, -e + 5000, 3000),
+                                        rng.integers(e - 5000, e, 3000)]))
+        probes = np.concatenate([rng.choice(hay, 4000),
+                                 rng.integers(-e - 10, -e + 6000, 2000),
+                                 rng.integers(e - 6000, e + 10, 2000)])
+        probes = np.sort(probes)
+    elif name == "many_blocks":      # 49 sorted blocks: windows found
+        hay = keys(0, 1 << 33, 60_000)   # by a pass of their own
+        probes = np.sort(np.concatenate([rng.choice(hay, 50_000),
+                                         hay[:3], hay[-3:],
+                                         rng.integers(-9, 1 << 33, 50_000)]))
+    elif name == "empty_hay":
+        hay = np.zeros(0, np.int64)
+        probes = rng.integers(-10, 10, 5000)
+    elif name == "unsorted_runs":    # blocks of sorted runs, not sorted
+        hay = keys(0, 1 << 35, 500_000)
+        runs = [np.sort(rng.choice(hay, 900)) for _ in range(12)]
+        probes = np.concatenate(runs)
+    elif name == "unsorted_small":   # the whole haystack is the sample
+        hay = keys(0, 10_000, 3000)
+        probes = rng.integers(-5, 10_005, 7000)
+    else:                            # unsorted into a large haystack
+        hay = keys(0, 1 << 45, 5_000_000)
+        probes = np.where(rng.random(9000) < 0.5, rng.choice(hay, 9000),
+                          rng.integers(0, 1 << 45, 9000))
+    return t(hay), t(probes)
+
+
+SEARCH_CASES = ["wide_window", "chunked_window", "straddle", "duplicates",
+                "outside", "i64_edges", "many_blocks", "empty_hay",
+                "unsorted_runs", "unsorted_small", "unsorted_large"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SEARCH_CASES)
+def test_search_matches_plain_on_card(cuda_device, name):
+    rng = np.random.default_rng(SEARCH_CASES.index(name))
+    hay, probes = _search_case(name, rng, cuda_device)
+    before = search.launches
+    got = search(hay, probes)
+    torch.cuda.synchronize()
+    assert search.launches == before + 1
+    assert torch.equal(got, search_plain(hay, probes))
+
+
+@pytest.mark.cuda
+def test_search_haystack_past_2_31_on_card(cuda_device):
+    """2^31 + 2^20 keys (17.2 GB of int64, on an 80 GB card): positions
+    past 2^31, found by sorted and unsorted blocks alike."""
+    m = (1 << 31) + (1 << 20)
+    if torch.cuda.get_device_properties(0).total_memory < 3 * 8 * m:
+        pytest.skip("needs about 52 GB of device memory")
+    hay = torch.arange(m, device=cuda_device, dtype=torch.int64) * 3
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    idx = torch.randint(0, m, (1 << 16,), generator=gen, device=cuda_device)
+    probes = hay[idx] + torch.randint(0, 2, idx.shape, generator=gen,
+                                      device=cuda_device)
+    for p in (probes, torch.sort(probes).values,
+              torch.tensor([0, 3 * (m - 1), 3 * (m - 1) + 1, -3],
+                           device=cuda_device)):
+        got = search(hay, p)
+        want = torch.where(p % 3 == 0, p // 3, -1)
+        want = torch.where((p >= 0) & (p < 3 * m), want, -1)
+        assert torch.equal(got, want)
+        assert int(got.max()) >= 1 << 31
+
+
 @pytest.mark.cuda
 def test_dense_smoke_prefill_on_card_launches_flash(cuda_device):
     import repro_torch.configs as C
