@@ -25,7 +25,9 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     launched; then ``search`` (sorted and unsorted calls
                     apart), ``merge_path`` and ``multi_merge_ranks``
                     replayed at the sizes of their launches there, timed
-                    beside their bounds;
+                    beside their bounds, the merges also split into device
+                    time a launch and host time a call beside an empty
+                    kernel's launch;
   6. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
                     reference's test shapes, timed beside its bound
@@ -67,13 +69,15 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -305,6 +309,102 @@ def _time_ms(fn: Callable[[], object], device: torch.device,
     return start.elapsed_time(end) / reps
 
 
+def _host_us(calls: List[Callable[[], object]], device: torch.device,
+             n: int = 1000, runs: int = 5) -> Dict[str, float]:
+    """Host microseconds a call: ``runs`` runs of ``n`` calls, taken in
+    turn from ``calls``, on ``time.perf_counter`` with no sync inside;
+    their median, min and max."""
+    for c in calls:
+        c()
+    _sync(device)
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for i in range(n):
+            calls[i % len(calls)]()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+        _sync(device)
+    return {"median": statistics.median(out), "min": min(out),
+            "max": max(out)}
+
+
+def _device_us(calls: List[Callable[[], object]], device: torch.device,
+               kernel: str, rounds: int = 3
+               ) -> Tuple[Optional[float], Optional[str]]:
+    """Device microseconds a launch of the CUDA kernel whose name holds
+    ``kernel``, where each of ``calls`` launches it once: its kernel
+    time in ``torch.profiler`` over ``rounds`` passes through ``calls``;
+    where the profiler shows none, a CUDA graph of whole passes replayed
+    ``rounds`` times under CUDA events (the gaps between launches
+    included; at least 20 launches a replay, so that the replay's own
+    launch does not set the time).  Returns (us, "profiler" or "graph");
+    (None, None) on the CPU, which launches nothing."""
+    if device.type != "cuda":
+        return None, None
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(rounds):
+            for c in calls:
+                c()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += ev.device_time_total
+            count += ev.count
+    if count > 0 and total > 0:           # the mean of those it recorded
+        return total / count, "profiler"
+    passes = -(-20 // len(calls))
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        for _ in range(passes):
+            for c in calls:
+                c()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return (_time_ms(graph.replay, device, rounds) * 1e3
+            / (passes * len(calls)), "graph")
+
+
+#: the merges' CUDA kernels by name, as the profiler lists them
+DEVICE_KERNELS = {"merge_path": "merge_path_kernel",
+                  "multi_merge_ranks": "multi_merge_kernel"}
+
+
+def launch_floor(device) -> Optional[Dict]:
+    """What no launch goes under: an empty kernel (``repro_empty`` of the
+    merge_path library) launched through ctypes on the current stream,
+    timed as the merges are (device us a launch, host us a call).  None
+    on the CPU, which launches nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    empty = build.function("merge_path", "repro_empty", (ctypes.c_void_p,))
+
+    def launch():
+        build.check("merge_path",
+                    empty(torch.cuda.current_stream(index).cuda_stream))
+
+    dev_us, by = _device_us([launch], device, "empty_kernel", rounds=20)
+    return {"device_us": dev_us, "device_us_by": by,
+            "host_us": _host_us([launch], device)}
+
+
+def _split_log(rec: Dict) -> str:
+    """The device / host split of a merge record, for the log."""
+    h = rec["host_us"]
+    dev = "not measured (no card)" if rec["device_us"] is None else \
+        f"{rec['device_us']:.3f} us a launch ({rec['device_us_by']})"
+    return (f"device {dev}; host {h['median']:.3f} us a call (min "
+            f"{h['min']:.3f}, max {h['max']:.3f})")
+
+
 def _max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(_max_abs_err(g, w) for g, w in zip(got, want))
@@ -366,21 +466,27 @@ def _domain_checks(device: torch.device, seed: int) -> None:
             ts = [torch.from_numpy(r).to(device) for r in rows]
             pool = np.concatenate([rows[0], [lo, hi - 1]])
             probes = torch.from_numpy(rng.choice(pool, size=200)).to(device)
-            cat = torch.cat(ts)
             offs = torch.tensor(np.cumsum([0] + [len(r) for r in rows]),
                                 device=device)
+            # the same lengths drawn with replacement: runs of equal
+            # keys inside every row, for the merges
+            dups = [torch.from_numpy(np.sort(rng.choice(r, size=len(r))))
+                    .to(device) if len(r) else t for r, t in zip(rows, ts)]
             pairs = [(search(ts[1], probes), search_plain(ts[1], probes)),
-                     (search(ts[1], ts[0]), search_plain(ts[1], ts[0])),
-                     (merge_path(ts[0], ts[1]),
-                      merge_path_plain(ts[0], ts[1])),
-                     (multi_merge_ranks(cat, offs),
-                      multi_merge_ranks_plain(cat, offs))]
+                     (search(ts[1], ts[0]), search_plain(ts[1], ts[0]))]
+            for rs in (ts, dups):
+                cat = torch.cat(rs)
+                pairs += [(merge_path(rs[0], rs[1]),
+                           merge_path_plain(rs[0], rs[1])),
+                          (multi_merge_ranks(cat, offs),
+                           multi_merge_ranks_plain(cat, offs))]
             for got, want in pairs:
                 if _max_abs_err(got, want) != 0:
                     raise AssertionError(f"kernel != plain on domain "
                                          f"{name}, trial {trial}")
     log(f"kernels: equal to their plain versions on "
-        f"{[d[0] for d in KEY_DOMAINS]}")
+        f"{[d[0] for d in KEY_DOMAINS]} (the merges also on rows with "
+        f"keys repeated inside them)")
 
 
 def phase_kernels(device, scale: float = 1.0, seed: int = 0,
@@ -388,7 +494,8 @@ def phase_kernels(device, scale: float = 1.0, seed: int = 0,
     """Every kernel against its plain version, exact, at the main
     path's shapes (``scale`` shrinks them) and on the key domains; the
     kernel's time beside its bytes bound, the plain version's and one
-    library call's.  Returns one record per kernel."""
+    library call's, and for the merges their device time a launch and
+    host time a call apart.  Returns one record per kernel."""
     device = torch.device(device)
     _domain_checks(device, seed)
     out = []
@@ -411,6 +518,12 @@ def phase_kernels(device, scale: float = 1.0, seed: int = 0,
         log(f"kernel {name}: shapes {rec['shapes']} exact; "
             f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
             f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f})")
+        if name in DEVICE_KERNELS:
+            calls = [lambda: kern(*args)]
+            rec["device_us"], rec["device_us_by"] = _device_us(
+                calls, device, DEVICE_KERNELS[name])
+            rec["host_us"] = _host_us(calls, device)
+            log(f"  {name}: {_split_log(rec)}")
         out.append(rec)
     return out
 
@@ -696,16 +809,20 @@ def merge_bound_ms(name: str, sizes: Tuple[int, ...]) -> float:
 def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7) -> Dict:
     """``merge_path`` and ``multi_merge_ranks`` at the sizes of the main
     phase's own launches: each recorded case replayed on random sorted
-    rows that share keys, timed beside its bytes bound.  Returns per
-    kernel the launches and the sums over them of time, bound and time -
-    bound (ms)."""
+    rows that share keys, timed beside its bytes bound; then, over the
+    recorded launches in turn, each kernel's device time a launch and
+    its wrapper's host time a call, beside the launch floor
+    (``launch_floor``).  Returns per kernel the launches, the sums over
+    them of time, bound and time - bound (ms), and that split."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     cases: Dict[Tuple[str, Tuple[int, ...]], int] = {}
     for c in calls:
         cases[c] = cases.get(c, 0) + 1
     out = {name: {"launches": 0, "sizes": 0, "ms": 0.0, "bound_ms": 0.0}
-           for name in ("merge_path", "multi_merge_ranks")}
+           for name in DEVICE_KERNELS}
+    launches: Dict[str, List[Callable[[], object]]] = \
+        {name: [] for name in DEVICE_KERNELS}
     for (name, sizes), count in sorted(cases.items()):
         rows = [_sorted_unique(rng, 0, 1 << 40, n) for n in sizes]
         for r in range(1, len(rows)):          # shared keys, sizes kept
@@ -716,23 +833,35 @@ def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7) -> Dict:
                      rows[0][:m]]))
         ts = [torch.from_numpy(r).to(device) for r in rows]
         if name == "merge_path":
-            ms = _time_ms(lambda: merge_path(ts[0], ts[1]), device, reps)
+            def call(ts=ts):
+                return merge_path(ts[0], ts[1])
         else:
-            keys = torch.cat(ts)
-            offs = torch.tensor(np.cumsum([0] + list(sizes)), device=device)
-            ms = _time_ms(lambda: multi_merge_ranks(keys, offs), device,
-                          reps)
+            def call(keys=torch.cat(ts), offs=torch.tensor(
+                    np.cumsum([0] + list(sizes)), device=device)):
+                return multi_merge_ranks(keys, offs)
+        ms = _time_ms(call, device, reps)
+        launches[name] += [call] * count
         rec = out[name]
         rec["launches"] += count
         rec["sizes"] += 1
         rec["ms"] += count * ms
         rec["bound_ms"] += count * merge_bound_ms(name, sizes)
+    floor = launch_floor(device)
     for name, rec in out.items():
         rec["slack_ms"] = rec["ms"] - rec["bound_ms"]
         log(f"{name} at the main phase's sizes: {rec['launches']} launches "
             f"({rec['sizes']} sizes), {rec['ms']:.4f} ms in all, bound "
             f"{rec['bound_ms']:.4f} ms, launches x (time - bound) "
             f"{rec['slack_ms']:.4f} ms")
+        if launches[name]:
+            rec["device_us"], rec["device_us_by"] = _device_us(
+                launches[name], device, DEVICE_KERNELS[name])
+            rec["host_us"] = _host_us(launches[name], device)
+            rec["floor"] = floor
+            log(f"  {name}, over its launches in turn: {_split_log(rec)}")
+    if floor is not None:
+        log(f"  launch floor, an empty kernel through ctypes: "
+            f"{_split_log(floor)}")
     return out
 
 
@@ -1256,6 +1385,7 @@ def main() -> int:
             raise AssertionError(f"recorded {rec['launches']} {kernel} "
                                  f"launches, counted "
                                  f"{main_run['launches'][kernel]}")
+        next(r for r in kernels if r["name"] == kernel)["replay"] = rec
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
     ssd_rec = phase_ssd_kernel("cuda", card=smi)

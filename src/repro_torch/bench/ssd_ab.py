@@ -4,11 +4,12 @@
 
 ``DIR`` is another checkout of this repository (the parent commit, for
 example, unpacked with ``git archive`` under the ignored ``build/``).
-``NAME`` is ``ssd_chunk`` (the default), ``block_sparse_matmul`` or
-``search``.  The kernel's source under ``src/repro_torch/kernels/csrc/``
-in ``DIR`` and in this tree are compiled with the flags of
-``kernels/build.py`` and launched through the same C interface, each
-build in a process of its own, in the order base, this, this, base, so
+``NAME`` is ``ssd_chunk`` (the default), ``block_sparse_matmul``,
+``search``, ``merge_path`` or ``multi_merge_ranks``.  The kernel's source
+under ``src/repro_torch/kernels/csrc/`` in ``DIR`` and in this tree are
+compiled with the flags of ``kernels/build.py`` and launched through the
+same C interface, each build in a process of its own that imports the
+package of its own checkout, in the order base, this, this, base, so
 both come from one card.  The cases:
 
   * ``ssd_chunk``: the Mamba2-1.3B prefill shape (B 4, nc 8, l 256, H 64,
@@ -19,12 +20,21 @@ both come from one card.  The cases:
     bf16, held to ``block_sparse_matmul_plain`` within 1e-4 sqrt(K)
     max |Z|;
   * ``search``: the table case (43M probes, half of them keys, into 21.5M
-    sorted int64 keys), sorted and shuffled, equal to ``search_plain``.
+    sorted int64 keys), sorted and shuffled, equal to ``search_plain``;
+  * ``merge_path``: the table case of ``chip_smoke.phase_kernels``
+    (100,000 + 125,000 keys) and one launch of the simulator's main path
+    (6,250 + 6,250), equal to ``merge_path_plain``;
+  * ``multi_merge_ranks``: the table case (3 rows, 345,000 keys) and one
+    main-path launch (3 x 6,250), equal to ``multi_merge_ranks_plain``.
 
 Each process holds its build to the plain version first, then times it
-with CUDA events (mean of ``--reps`` launches after one warm-up).  Prints
-the card's name and power limit, one line per timing, and a JSON summary
-last.
+with CUDA events (mean of ``--reps`` launches after one warm-up).  The
+merges' launches take a few microseconds, less than a ctypes call's host
+time, so they are captured in a CUDA graph of ``--reps`` launches that is
+replayed under the events; each of their cases also reports the host
+microseconds of one call of its checkout's Python wrapper (median of 5
+runs of 1,000 calls with no sync inside).  Prints the card's name and
+power limit, one line per timing, and a JSON summary last.
 """
 from __future__ import annotations
 
@@ -32,16 +42,23 @@ import argparse
 import ctypes
 import hashlib
 import json
+import os
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import (block_sparse_matmul_plain, build,
+                                 merge_path, merge_path_plain,
+                                 multi_merge_ranks, multi_merge_ranks_plain,
                                  search_plain, ssd_chunk_plain)
 from repro_torch.kernels.block_sparse_matmul import _ARGTYPES as BSMM_ARGS
 from repro_torch.kernels.block_sparse_matmul import _DTYPES as BSMM_DTYPES
+from repro_torch.kernels.merge import _ARGTYPES as MERGE_ARGS
+from repro_torch.kernels.multi_merge import _ARGTYPES as MULTI_ARGS
 from repro_torch.kernels.search import _ARGTYPES as SEARCH_ARGS
 from repro_torch.kernels.ssd_chunk import _ARGTYPES as SSD_ARGS
 from repro_torch.kernels.ssd_chunk import _DTYPES as SSD_DTYPES
@@ -53,13 +70,21 @@ BSMM_CASE = (8192, 8192, 1024, 128, 128, 0.3)
 BSMM_RTOL = 1e-4
 #: (keys, probes): the table case of chip_smoke.phase_kernels
 SEARCH_CASE = (21_500_000, 43_000_000)
+#: row lengths of the merges: the table case of chip_smoke.phase_kernels
+#: and one launch of the simulator's main path
+MERGE_CASES = {"table": (100_000, 125_000), "main": (6250, 6250)}
+MULTI_CASES = {"table": (100_000, 125_000, 120_000), "main": (6250,) * 3}
+#: the source file of each kernel, where it is not the kernel's name
+SOURCE = {"multi_merge_ranks": "multi_merge"}
 
 
 def compile_source(src: Path, tag: str) -> Path:
     """``src`` compiled with ``build.NVCC_FLAGS`` into ``build.BUILD_DIR``;
     prints nvcc's register and spill lines; returns the library."""
-    h = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = build.BUILD_DIR / f"ab-{tag}-{h}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    out = build.BUILD_DIR / f"ab-{tag}-{h.hexdigest()[:16]}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
                            str(src)], capture_output=True, text=True)
@@ -173,35 +198,126 @@ def search_cases(lib, gen):
         yield label, run, ok
 
 
+def _rows(gen, sizes):
+    """Sorted int64 rows of these lengths on the card, each after the
+    first holding every fourth key of the first (a quarter of it at
+    most), as chip_smoke.py's replays share keys."""
+    rows = [torch.sort(torch.randint(0, 1 << 40, (n,), generator=gen,
+                                     device="cuda")).values for n in sizes]
+    for r in range(1, len(rows)):
+        m = min(len(rows[0]), len(rows[r])) // 4
+        rows[r] = torch.sort(torch.cat([rows[r][:len(rows[r]) - m],
+                                        rows[0][::4][:m]])).values
+    return rows
+
+
+def _equal(got, want):
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    return (0.0 if same else float("nan")), same
+
+
+def merge_cases(lib, gen):
+    fn = lib.repro_merge_path
+    fn.argtypes, fn.restype = list(MERGE_ARGS), ctypes.c_int
+    for label, sizes in MERGE_CASES.items():
+        a, b = _rows(gen, sizes)
+        want = merge_path_plain(a, b)
+        merged = torch.empty_like(want[0])
+        src = torch.empty_like(want[1])
+
+        def run(a=a, b=b, merged=merged, src=src):
+            _check(fn(a.data_ptr(), len(a), b.data_ptr(), len(b),
+                      merged.data_ptr(), src.data_ptr(), _stream()),
+                   "merge_path")
+            return merged, src
+
+        yield (label, run, lambda got, want=want: _equal(got, want),
+               lambda a=a, b=b: merge_path(a, b))
+
+
+def multi_cases(lib, gen):
+    fn = lib.repro_multi_merge_ranks
+    fn.argtypes, fn.restype = list(MULTI_ARGS), ctypes.c_int
+    for label, sizes in MULTI_CASES.items():
+        keys = torch.cat(_rows(gen, sizes))
+        offs = torch.tensor([0, *sizes], device="cuda").cumsum(0)
+        want = multi_merge_ranks_plain(keys, offs)
+        ranks = torch.empty_like(want)
+
+        def run(keys=keys, offs=offs, ranks=ranks):
+            _check(fn(keys.data_ptr(), offs.data_ptr(), len(offs) - 1,
+                      len(keys), ranks.data_ptr(), _stream()),
+                   "multi_merge_ranks")
+            return (ranks,)
+
+        yield (label, run, lambda got, want=want: _equal(got, (want,)),
+               lambda keys=keys, offs=offs: multi_merge_ranks(keys, offs))
+
+
 KERNELS = {"ssd_chunk": ssd_cases, "block_sparse_matmul": bsmm_cases,
-           "search": search_cases}
+           "search": search_cases, "merge_path": merge_cases,
+           "multi_merge_ranks": multi_cases}
 
 
-def time_ms(run, reps: int) -> float:
+def time_ms(run, reps: int, graph: bool = False) -> float:
+    """Mean ms a launch: CUDA events around ``reps`` launches after one
+    warm-up, or around one replay of a CUDA graph that captured them."""
     run()
     torch.cuda.synchronize()
+    g = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.cuda.graph(g, stream=side):
+            for _ in range(reps):
+                run()
+        torch.cuda.current_stream().wait_stream(side)
+        g.replay()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        run()
+    if graph:
+        g.replay()
+    else:
+        for _ in range(reps):
+            run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
+def host_us(call, calls: int = 1000, runs: int = 5) -> float:
+    """Median host microseconds of one ``call``: ``runs`` runs of
+    ``calls`` calls with no sync inside."""
+    call()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
 def measure(kernel: str, lib_path: Path, reps: int) -> dict:
     """One build's error and time at each case of ``kernel`` (this
-    process)."""
+    process); for the merges also the host time of a wrapper call."""
     lib = ctypes.CDLL(str(lib_path))
     gen = torch.Generator("cuda").manual_seed(3)
     out = {}
-    for label, run, ok in KERNELS[kernel](lib, gen):
+    for label, run, ok, *wrapper in KERNELS[kernel](lib, gen):
         got = run()
         torch.cuda.synchronize()
         err, good = ok(got)
         out[label] = {"max_abs_err": err, "ok": good,
-                      "ms": time_ms(run, reps) if good else None}
+                      "ms": time_ms(run, reps, graph=bool(wrapper))
+                      if good else None}
+        if wrapper:
+            out[label]["host_us"] = host_us(wrapper[0])
     return out
 
 
@@ -220,26 +336,31 @@ def main(argv=None) -> int:
         return 0
     if args.base is None:
         ap.error("--base is required")
-    rel = Path("src/repro_torch/kernels/csrc") / f"{args.kernel}.cu"
-    libs = {"base": compile_source(args.base / rel, f"{args.kernel}-base"),
-            "this": compile_source(build.CSRC / f"{args.kernel}.cu",
-                                   f"{args.kernel}-this")}
+    rel = Path("src/repro_torch/kernels/csrc") / \
+        f"{SOURCE.get(args.kernel, args.kernel)}.cu"
+    roots = {"base": args.base.resolve(), "this": build.CSRC.parents[3]}
+    libs = {tag: compile_source(root / rel, f"{args.kernel}-{tag}")
+            for tag, root in roots.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     turns, ok = [], True
     for tag in ("base", "this", "this", "base"):
+        # this file, run with the checkout's own package on the path
         proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.bench.ssd_ab", "--kernel",
+            [sys.executable, str(Path(__file__).resolve()), "--kernel",
              args.kernel, "--measure", str(libs[tag]), "--reps",
-             str(args.reps)], capture_output=True, text=True)
+             str(args.reps)], capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=str(roots[tag] / "src")))
         if proc.returncode != 0:
             raise RuntimeError(f"{tag}: {proc.stdout}{proc.stderr}")
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         for label, r in rec.items():
             ms = "not timed" if r["ms"] is None else f"{r['ms']:.4f} ms"
-            print(f"{tag} {args.kernel} {label}: {ms}, max abs err "
+            host = f", wrapper {r['host_us']:.3f} us a call on the host" \
+                if "host_us" in r else ""
+            print(f"{tag} {args.kernel} {label}: {ms}{host}, max abs err "
                   f"{r['max_abs_err']:.3g}, within its limit: {r['ok']}",
                   flush=True)
             ok = ok and r["ok"]

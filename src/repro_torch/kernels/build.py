@@ -4,9 +4,10 @@ Each source in ``kernels/csrc/`` is compiled by its own ``nvcc`` process
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds), and loaded with ``ctypes``.  The libraries go to
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
-their source and flags, so an edited source is rebuilt and an unchanged
-one is reused.  Nothing here runs at import time, and nothing catches a
-failed build: it raises with the compiler's output.
+their source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+Nothing here runs at import time, and nothing catches a failed build: it
+raises with the compiler's output.
 
 No library links against the driver (``-lcuda``): ``flash_attention.cu``
 encodes its TMA tensor maps with ``cuTensorMapEncodeTiled``, which it
@@ -51,7 +52,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library of ``csrc/{name}.cu``, named by a hash of the source,
+    every header in ``csrc/`` (a source may include any of them) and the
+    flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -8,6 +8,7 @@ tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -18,6 +19,12 @@ from . import build
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p)
+
+
+@functools.cache
+def _kernel() -> ctypes._CFuncPtr:
+    """The typed C entry point, resolved (and built) once a process."""
+    return build.function("merge_path", "repro_merge_path", _ARGTYPES)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -41,22 +48,26 @@ def merge_path_plain(a: torch.Tensor, b: torch.Tensor
 def merge_path(a: torch.Tensor, b: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``merge_path_plain``'s function; on a CUDA device, one launch of
-    the hand-written kernel (counted on ``merge_path.launches``)."""
+    the hand-written kernel (counted on ``merge_path.launches``) on the
+    device's current stream."""
     _check(a, b)
-    if a.device.type == "cpu":
-        return merge_path_plain(a, b)
-    if a.device.type != "cuda":
+    # host time is most of a launch at the simulator's sizes: is_cuda,
+    # shape[0] and an int device index cost less of it than device.type,
+    # len() and a torch.device
+    if not a.is_cuda:
+        if a.is_cpu:
+            return merge_path_plain(a, b)
         raise ValueError(f"merge_path: no kernel for device {a.device}")
-    total = len(a) + len(b)
-    merged = torch.empty(total, dtype=torch.int64, device=a.device)
-    src = torch.empty(total, dtype=torch.int8, device=a.device)
-    if total == 0:
+    n, m = a.shape[0], b.shape[0]
+    merged = torch.empty(n + m, dtype=torch.int64, device=a.device)
+    src = torch.empty(n + m, dtype=torch.int8, device=a.device)
+    if n + m == 0:
         return merged, src
-    fn = build.function("merge_path", "repro_merge_path", _ARGTYPES)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    fn = _kernel()
     merge_path.launches += 1
-    build.check("merge_path", fn(a.data_ptr(), len(a), b.data_ptr(), len(b),
-                                 merged.data_ptr(), src.data_ptr(), stream))
+    build.check("merge_path", fn(
+        a.data_ptr(), n, b.data_ptr(), m, merged.data_ptr(), src.data_ptr(),
+        torch.cuda.current_stream(a.get_device()).cuda_stream))
     return merged, src
 
 

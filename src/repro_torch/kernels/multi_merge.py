@@ -11,6 +11,7 @@ for tensors on a CUDA device and takes the plain version,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,6 +20,13 @@ from . import build
 #: repro_multi_merge_ranks(keys, offs, k, total, ranks, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p)
+
+
+@functools.cache
+def _kernel() -> ctypes._CFuncPtr:
+    """The typed C entry point, resolved (and built) once a process."""
+    return build.function("multi_merge", "repro_multi_merge_ranks",
+                          _ARGTYPES)
 
 
 def _check(keys: torch.Tensor, offs: torch.Tensor) -> None:
@@ -30,7 +38,7 @@ def _check(keys: torch.Tensor, offs: torch.Tensor) -> None:
     if keys.device != offs.device:
         raise ValueError(f"multi_merge_ranks: keys on {keys.device}, offs "
                          f"on {offs.device}")
-    if len(offs) < 2:
+    if offs.shape[0] < 2:
         raise ValueError("multi_merge_ranks: offs needs k + 1 >= 2 entries")
 
 
@@ -51,23 +59,25 @@ def multi_merge_ranks(keys: torch.Tensor, offs: torch.Tensor
                       ) -> torch.Tensor:
     """``multi_merge_ranks_plain``'s function; on a CUDA device, one
     launch of the hand-written kernel (counted on
-    ``multi_merge_ranks.launches``).  ``offs`` must end at ``len(keys)``
-    and each row must be sorted."""
+    ``multi_merge_ranks.launches``) on the device's current stream.
+    ``offs`` must end at ``len(keys)`` and each row must be sorted."""
     _check(keys, offs)
-    if keys.device.type == "cpu":
-        return multi_merge_ranks_plain(keys, offs)
-    if keys.device.type != "cuda":
+    # host time counts here as in merge.merge_path
+    if not keys.is_cuda:
+        if keys.is_cpu:
+            return multi_merge_ranks_plain(keys, offs)
         raise ValueError(f"multi_merge_ranks: no kernel for device "
                          f"{keys.device}")
     ranks = torch.empty_like(keys)
-    if len(keys) == 0:
+    total = keys.shape[0]
+    if total == 0:
         return ranks
-    fn = build.function("multi_merge", "repro_multi_merge_ranks", _ARGTYPES)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    fn = _kernel()
     multi_merge_ranks.launches += 1
-    build.check("multi_merge", fn(keys.data_ptr(), offs.data_ptr(),
-                                  len(offs) - 1, len(keys),
-                                  ranks.data_ptr(), stream))
+    build.check("multi_merge", fn(
+        keys.data_ptr(), offs.data_ptr(), offs.shape[0] - 1, total,
+        ranks.data_ptr(),
+        torch.cuda.current_stream(keys.get_device()).cuda_stream))
     return ranks
 
 

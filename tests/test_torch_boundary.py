@@ -114,6 +114,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
     for r in recs:
         assert r["max_abs_err"] == 0 and r["bound_by"] == "bytes"
         assert r["bound_ms"] > 0
+    # the merges' device / host split at the table case (no device time
+    # on the CPU)
+    for r in recs[1:]:
+        assert r["device_us"] is None and r["host_us"]["median"] > 0
     chip_smoke.phase_oracle("cpu", n=16)
     out = chip_smoke.phase_main(
         "cpu", configs=[(d, 48, 150) for d, _, _ in chip_smoke.MAIN_CONFIGS])
@@ -159,7 +163,8 @@ def test_chip_smoke_search_replay_splits_sorted_and_unsorted(chip_smoke):
 
 def test_chip_smoke_merge_replay_rehearses_on_cpu(chip_smoke):
     """The merges replayed at recorded sizes (the CPU lowering records
-    none): launches counted per kernel, bounds from the bytes."""
+    none): launches counted per kernel, bounds from the bytes, host time
+    a call apart from device time."""
     out = chip_smoke.phase_main(
         "cpu", configs=[("sparse-add", 48, 150), ("sparse-add-3way", 48,
                                                   150)])
@@ -176,6 +181,16 @@ def test_chip_smoke_merge_replay_rehearses_on_cpu(chip_smoke):
     assert abs(mp["bound_ms"] - 17 * (2 * 225 + 7) / rate) < 1e-12
     assert abs(mm["bound_ms"] - (16 * 100 + 8 * 4) / rate) < 1e-12
     assert mp["slack_ms"] == mp["ms"] - mp["bound_ms"]
+    # the split over the recorded launches: host time a call is measured
+    # here too; device time and the empty-kernel floor need a card, so
+    # the CPU reports them as None
+    for rec in (mp, mm):
+        assert set(rec["host_us"]) == {"median", "min", "max"}
+        assert 0 < rec["host_us"]["min"] <= rec["host_us"]["median"] <= \
+            rec["host_us"]["max"]
+        assert rec["device_us"] is None and rec["device_us_by"] is None
+        assert rec["floor"] is None
+    assert chip_smoke.launch_floor("cpu") is None
 
 
 def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):
@@ -280,6 +295,22 @@ def test_build_report_checks_every_source(chip_smoke):
                                  f"_Z6kernelILi128EEvPf"):
             chip_smoke.build_report(bad)
 
+
+def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by a hash of its source and of every
+    ``csrc/*.cuh``: an edited or added header rebuilds it."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._target("k")
+    assert build._target("k") == first
+    assert first.parent == build.BUILD_DIR and first.name.startswith("k-")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = build._target("k")
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// another header\n")
+    assert build._target("k") not in (first, second)
 
 def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
     """Phases 10-15 at small shapes and the smoke config: the CPU takes

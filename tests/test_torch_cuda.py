@@ -17,6 +17,8 @@ from repro_torch.kernels import (KERNELS, block_sparse_matmul,
                                  multi_merge_ranks, multi_merge_ranks_plain,
                                  search, search_plain, ssd_chunk,
                                  ssd_chunk_plain)
+from test_torch_merge_tiling import DOMAINS as MERGE_DOMAINS
+from test_torch_merge_tiling import sorted_rows as merge_rows
 
 I32_MAX = (1 << 31) - 1
 #: duplicate-heavy, empty, hugging INT32_MAX, packed int64 near 2^62, wide
@@ -505,6 +507,78 @@ def test_search_haystack_past_2_31_on_card(cuda_device):
         want = torch.where((p >= 0) & (p < 3 * m), want, -1)
         assert torch.equal(got, want)
         assert int(got.max()) >= 1 << 31
+
+
+
+def _offsets(rows, device):
+    return torch.tensor(np.cumsum([0] + [len(r) for r in rows]),
+                        dtype=torch.int64, device=device)
+
+
+def _assert_merges_equal(rows, device):
+    """``merge_path`` on the first two rows and ``multi_merge_ranks`` on
+    all of them equal their plain versions, one launch each."""
+    ts = [torch.from_numpy(r).to(device) for r in rows]
+    before = (merge_path.launches, multi_merge_ranks.launches)
+    got, want = merge_path(ts[0], ts[1]), merge_path_plain(ts[0], ts[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    keys, offs = torch.cat(ts), _offsets(rows, device)
+    assert torch.equal(multi_merge_ranks(keys, offs),
+                       multi_merge_ranks_plain(keys, offs))
+    torch.cuda.synchronize()
+    launched = (len(ts[0]) + len(ts[1]) > 0, len(keys) > 0)
+    assert (merge_path.launches, multi_merge_ranks.launches) == \
+        tuple(b + int(x) for b, x in zip(before, launched))
+
+
+#: the longest row: one key, two, a tile (512 outputs, 1,024 ranks) or
+#: so, many tiles, the main path's rows (about 6,250 keys) and beyond
+MERGE_N_MAX = [1, 2, 300, 1500, 6250, 40_000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", sorted(MERGE_DOMAINS))
+@pytest.mark.parametrize("n_max", MERGE_N_MAX)
+def test_merges_on_adversarial_rows_on_card(cuda_device, domain, n_max):
+    """``test_torch_merge_tiling``'s generator: empty, one-key, short,
+    long and run-length rows, keys repeated within and across rows,
+    around INT32_MAX and 2^62; k from 3 to 8."""
+    rng = np.random.default_rng(n_max)
+    for k in (3, 4, 5, 8):
+        _assert_merges_equal(merge_rows(rng, k, n_max, domain),
+                             cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["main_path", "table", "dense_row",
+                                  "many_rows", "equal_runs"])
+def test_merges_at_named_sizes_on_card(cuda_device, name):
+    """The main path's launches (6,250 + 6,250 keys; 3 x 6,250), the
+    table case's rows (3 x 345,000), a row far denser than the others
+    (the splitter sample), 40 rows (two steps of the block map) and runs
+    of equal keys across every tile edge."""
+    rng = np.random.default_rng(11)
+
+    def row(n, hi=1 << 40):
+        return np.sort(rng.integers(0, hi, n))
+
+    if name in ("main_path", "table"):
+        n = 6250 if name == "main_path" else 345_000
+        rows = [row(n) for _ in range(3)]
+        rows[1] = np.sort(np.concatenate([rows[1][:-n // 4],
+                                          rows[0][::4][:n // 4]]))
+        rows[2] = np.sort(np.concatenate([rows[2][:-n // 5],
+                                          rows[0][::5][:n // 5]]))
+    elif name == "dense_row":
+        dense = row(300_000, 1 << 24)
+        rows = [np.sort(np.concatenate([dense[[0, 9, -1]], row(50, 1 << 24)])),
+                dense, row(2000, 1 << 24), dense[:7].copy()]
+    elif name == "many_rows":
+        rows = [row(int(rng.integers(0, 900)), 5000) for _ in range(40)]
+    else:
+        vals = np.sort(rng.integers(0, 1 << 62, 6))
+        rows = [np.repeat(vals, rng.integers(1, 1500, 6)) for _ in range(3)]
+    _assert_merges_equal(rows, cuda_device)
 
 
 @pytest.mark.cuda
