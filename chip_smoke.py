@@ -28,37 +28,46 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     beside their bounds, the merges also split into device
                     time a launch and host time a call beside an empty
                     kernel's launch;
-  6. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
+  6. graph       -- the graph designs (Graphicionado, GraphDynS, Ours-VCP)
+                    under BFS and SSSP at 48^2 vertices with the hand
+                    kernels and with the plain versions: identical; then
+                    the Fig-13 study at 362^2 vertices and 64 iterations on
+                    the kernels, every launch equal to its plain version on
+                    the same inputs, every run equal to the reference's record
+                    (``BENCH_graph.json``), its claims the reference's; then
+                    ``search`` and the merges replayed at the sizes of
+                    their launches there;
+  7. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
                     reference's test shapes, timed beside its bound
                     (TFLOP/s and share of it);
-  7. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
+  8. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
                     batch 4 x 2048 tokens, with the kernel and with stage
                     (1) on the plain version: logits and greedy tokens
                     agree, one kernel launch per layer;
-  8. consistency -- in fp32 at full width, the last-position logits of a
+  9. consistency -- in fp32 at full width, the last-position logits of a
                     512-token prefill against 512 ``serve_step`` decode
                     steps;
-  9. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
+ 10. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
                     prompt tokens and 16 new tokens each;
- 10. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
+ 11. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
                     at the Qwen2-7B prefill shape and the reference's test
                     shapes (fp32 and bf16, causal and not, a ragged KV
                     tail), timed beside its bound (TFLOP/s and share of
                     it) and SDPA;
- 11. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
+ 12. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
                     the reference's test shapes (all four dtype pairs) and
                     an 8192 x 8192 A at 30% tile density (fp32 and bf16),
                     there timed beside its route's bound and a dense
                     ``torch.matmul`` in the same dtype;
- 12. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
+ 13. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
                     at the reference bench's shapes against its oracle (the
                     path that launches ``block_sparse_matmul``);
- 13. dense_prefill -- phase 7 for Qwen2-7B at full width: one
+ 14. dense_prefill -- phase 8 for Qwen2-7B at full width: one
                     ``flash_attention`` launch per layer, and the same
                     prefill with ``mha`` on the plain version;
- 14. dense_consistency -- phase 8 for Qwen2-7B, 256 tokens;
- 15. dense_serve  -- phase 9 for Qwen2-7B.
+ 15. dense_consistency -- phase 9 for Qwen2-7B, 256 tokens;
+ 16. dense_serve  -- phase 10 for Qwen2-7B.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -94,7 +103,7 @@ from repro_torch.core.generator import check_against_dense  # noqa: E402
 from repro_torch.core.iteration import PythonBackend  # noqa: E402
 from repro_torch.core.trace import CollectingInstr  # noqa: E402
 from repro_torch.core.vectorized import VectorBackend  # noqa: E402
-from repro_torch.bench import kernels_bench  # noqa: E402
+from repro_torch.bench import fig13_vcp, kernels_bench  # noqa: E402
 from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
                                  block_sparse_matmul,
                                  block_sparse_matmul_plain, build,
@@ -643,17 +652,40 @@ def _declared(design, dense_stored):
     return out
 
 
+def _hold(held: Optional[Dict[str, float]], name: str, plain, args, got):
+    """With ``held`` given, hold one wrapper call's output ``got`` to the
+    plain version's on the same input tensors (``torch.equal``, every
+    output); count the calls that launched (``held[name]``) and the host
+    seconds the checks took (``held["seconds"]``)."""
+    if held is None:
+        return
+    t0 = time.perf_counter()
+    want = plain(*args)
+    outs = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    if not all(torch.equal(g, w) for g, w in zip(outs, wants)):
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"sizes {[len(a) for a in args]}")
+    if outs[0].numel():                         # the wrapper launched
+        held[name] = held.get(name, 0) + 1
+    held["seconds"] = held.get("seconds", 0.0) + time.perf_counter() - t0
+
+
 @contextlib.contextmanager
-def record_search_calls(calls: List[Tuple[int, int, bool]]):
+def record_search_calls(calls: List[Tuple[int, int, bool]],
+                        held: Optional[Dict[str, float]] = None):
     """Appends (keys, probes, probes sorted) for every ``search`` the
     CUDA lowering makes while open: only ``lookup_keys`` passes probes
-    unsorted."""
+    unsorted.  With ``held``, each call is also held to ``search_plain``
+    on its own tensors (``_hold``)."""
     search_fn, lookup = CudaKernels._search, CudaKernels.lookup_keys
     in_lookup = []
 
     def recording_search(hay, probes):
         calls.append((len(hay), len(probes), not in_lookup))
-        return search_fn(hay, probes)
+        out = search_fn(hay, probes)
+        _hold(held, "search", search_plain, (hay, probes), out)
+        return out
 
     def recording_lookup(self, hay, probes):
         in_lookup.append(True)
@@ -672,20 +704,28 @@ def record_search_calls(calls: List[Tuple[int, int, bool]]):
 
 
 @contextlib.contextmanager
-def record_merge_calls(calls: List[Tuple[str, Tuple[int, ...]]]):
+def record_merge_calls(calls: List[Tuple[str, Tuple[int, ...]]],
+                       held: Optional[Dict[str, float]] = None):
     """Appends ("merge_path", (len a, len b)) and ("multi_merge_ranks",
-    row lengths) for every merge the CUDA lowering makes while open."""
+    row lengths) for every merge the CUDA lowering makes while open.
+    With ``held``, each call is also held to its plain version on its own
+    tensors (``_hold``)."""
     merge, multi = CudaKernels._merge, CudaKernels._multi_merge
 
     def recording_merge(a, b):
         calls.append(("merge_path", (len(a), len(b))))
-        return merge(a, b)
+        out = merge(a, b)
+        _hold(held, "merge_path", merge_path_plain, (a, b), out)
+        return out
 
     def recording_multi(keys, offs):
         o = offs.tolist()
         calls.append(("multi_merge_ranks",
                       tuple(hi - lo for lo, hi in zip(o, o[1:]))))
-        return multi(keys, offs)
+        out = multi(keys, offs)
+        _hold(held, "multi_merge_ranks", multi_merge_ranks_plain,
+              (keys, offs), out)
+        return out
 
     CudaKernels._merge = staticmethod(recording_merge)
     CudaKernels._multi_merge = staticmethod(recording_multi)
@@ -744,8 +784,9 @@ def phase_main(device, configs=MAIN_CONFIGS, seed: int = 2,
 
 
 def phase_search_slack(device, calls, reps: int = 5,
-                       seed: int = 3) -> Dict:
-    """``search`` at the sizes of the main phase's own launches: each
+                       seed: int = 3, path: str = "main") -> Dict:
+    """``search`` at the sizes of a path's own launches (``path`` names
+    it in the log; the main phase's by default): each
     (keys, probes, sorted) case replayed on random keys (half the probes
     hit) and timed beside its bytes bound.  Returns, for the sorted
     calls, the unsorted ones (``lookup_keys``) and all of them, the
@@ -787,7 +828,7 @@ def phase_search_slack(device, calls, reps: int = 5,
         sizes.append((count * ms, m, n, count, is_sorted))
     for part, rec in out.items():
         rec["slack_ms"] = rec["ms"] - rec["bound_ms"]
-        log(f"search at the main phase's sizes, {part}: {rec['launches']} "
+        log(f"search at the {path} phase's sizes, {part}: {rec['launches']} "
             f"launches ({rec['sizes']} sizes), {rec['ms']:.4f} ms in all, "
             f"bound {rec['bound_ms']:.4f} ms, launches x (time - bound) "
             f"{rec['slack_ms']:.4f} ms")
@@ -806,9 +847,11 @@ def merge_bound_ms(name: str, sizes: Tuple[int, ...]) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7) -> Dict:
-    """``merge_path`` and ``multi_merge_ranks`` at the sizes of the main
-    phase's own launches: each recorded case replayed on random sorted
+def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7,
+                      path: str = "main") -> Dict:
+    """``merge_path`` and ``multi_merge_ranks`` at the sizes of a path's
+    own launches (``path`` names it in the log; the main phase's by
+    default): each recorded case replayed on random sorted
     rows that share keys, timed beside its bytes bound; then, over the
     recorded launches in turn, each kernel's device time a launch and
     its wrapper's host time a call, beside the launch floor
@@ -849,7 +892,7 @@ def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7) -> Dict:
     floor = launch_floor(device)
     for name, rec in out.items():
         rec["slack_ms"] = rec["ms"] - rec["bound_ms"]
-        log(f"{name} at the main phase's sizes: {rec['launches']} launches "
+        log(f"{name} at the {path} phase's sizes: {rec['launches']} launches "
             f"({rec['sizes']} sizes), {rec['ms']:.4f} ms in all, bound "
             f"{rec['bound_ms']:.4f} ms, launches x (time - bound) "
             f"{rec['slack_ms']:.4f} ms")
@@ -865,8 +908,148 @@ def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7) -> Dict:
     return out
 
 
+def phase_replays(device, run: Dict, path: str = "main") -> Dict[str, Dict]:
+    """``search`` and the merges replayed at the sizes of a path's
+    launches (``run``: what ``phase_main`` or ``phase_graph`` returns),
+    by kernel; each replay must hold as many launches as the path
+    counted."""
+    out = {"search": phase_search_slack(device, run["search_calls"],
+                                        path=path),
+           **phase_merge_slack(device, run["merge_calls"], path=path)}
+    for name, rec in out.items():
+        recorded = (rec["total"] if name == "search" else rec)["launches"]
+        if recorded != run["launches"][name]:
+            raise AssertionError(f"recorded {recorded} {name} launches on "
+                                 f"the {path} path, counted "
+                                 f"{run['launches'][name]}")
+    return out
+
+
 # ---------------------------------------------------------------------- #
-# 6-9: the Mamba2 model path
+# 6: the graph path (paper Sec. 8, Fig. 13)
+# ---------------------------------------------------------------------- #
+def _launch_sizes(search_calls, merge_calls) -> Dict[str, Dict[str, int]]:
+    """Largest and median size of the recorded launches: probes a
+    ``search`` (calls without probes launch nothing), keys a merge."""
+    sizes = {"search": [n for _, n, _ in search_calls if n]}
+    for name, rows in merge_calls:
+        if sum(rows):
+            sizes.setdefault(name, []).append(sum(rows))
+    return {k: {"largest": max(v), "median": int(statistics.median(v))}
+            for k, v in sizes.items() if v}
+
+
+def phase_graph(device, side: int = fig13_vcp.FULL_SIDE,
+                check_side: int = fig13_vcp.SMOKE_SIDE,
+                max_iters: int = fig13_vcp.MAX_ITERS, card: str = "") -> Dict:
+    """The graph designs' path on ``device``.  First BFS and SSSP on the
+    three designs at ``check_side``^2 vertices, with the hand kernels and
+    with the plain versions on the same device: identical outputs,
+    counters, Reports and iteration counts, no fallback.  Then the Fig-13
+    study (``fig13_vcp.bench``) at ``side``^2 vertices on the kernels,
+    traced, every launch held to its plain version on its own input
+    tensors (``_hold``): per run its wall seconds without those checks,
+    iterations, reached vertices,
+    modeled seconds, launches, engine stages and seam calls; the
+    speedups and claims; no fallback; at the study's full size both
+    gated claims, every run at the iteration cap and equal to the
+    reference's record (``BENCH_graph.json``).  Returns the launches of
+    every seam kernel over the study, its summary, and the sizes of every
+    ``search`` and merge launch there."""
+    device = torch.device(device)
+    v = check_side * check_side
+    t0 = time.perf_counter()
+    for algo, weighted, g in fig13_vcp.graphs(check_side):
+        for design, spec in fig13_vcp.designs(weighted, v).items():
+            label = f"graph {algo}/{design} {check_side}^2"
+            runs = []
+            for backend in (VectorBackend(device=device), VectorBackend(
+                    device=device, kernel_backend=TorchKernels(device))):
+                ci = CollectingInstr()
+                res, iters = fig13_vcp.run_vcp(spec, g, v, backend,
+                                               extra_instr=ci,
+                                               max_iters=max_iters)
+                _assert_native(label, res)
+                runs.append((res, ci, iters))
+            _assert_same(label, runs[0][:2], runs[1][:2])
+            if runs[0][2] != runs[1][2]:
+                raise AssertionError(f"{label}: {runs[0][2]} iterations "
+                                     f"with the kernels, {runs[1][2]} plain")
+    log(f"graph: BFS and SSSP on 3 designs at {check_side}^2 vertices on "
+        f"{device}: kernels and plain versions identical (outputs, "
+        f"counters, Reports, iterations), no fallback; 12 runs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    search_calls: List[Tuple[int, int, bool]] = []
+    merge_calls: List[Tuple[str, Tuple[int, ...]]] = []
+    held: Dict[str, float] = {"seconds": 0.0}
+    run_fn = fig13_vcp._run
+
+    def held_run(*args, **kwargs):
+        # the seconds of one run's checks, to take out of its wall time
+        t = held["seconds"]
+        rec = run_fn(*args, **kwargs)
+        rec["check_seconds"] = held["seconds"] - t
+        return rec
+
+    fig13_vcp._run = held_run
+    try:
+        with record_search_calls(search_calls, held), \
+                record_merge_calls(merge_calls, held):
+            out = fig13_vcp.bench(side=side, device=device,
+                                  max_iters=max_iters, trace=True)
+    finally:
+        fig13_vcp._run = run_fn
+    launches = {k.__name__: 0 for k in KERNELS}
+    for key, r in out["runs"].items():
+        for k, c in r["launches"].items():
+            launches[k] += c
+        # the checks run inside the seam calls, which run inside the
+        # engine's stages: wall and seam times are given without them
+        check = r.pop("check_seconds")
+        outside = r["wall_seconds"] - sum(r["stage_seconds"].values())
+        wall = r["wall_seconds"] = r["wall_seconds"] - check
+        seams = sum(r["seam_seconds"].values()) - check
+        log(f"graph {key} {side}^2 on {card or device}: "
+            f"{wall:.3f} s (traced, without {check:.3f} s of per-launch "
+            f"checks), {r['iters']} iterations, reached {r['reached']}, "
+            f"modeled {r['modeled_seconds']!r} s; launches {r['launches']}")
+        log("  stages (s, with the checks): " + ", ".join(
+            f"{k} {t:.3f}" for k, t in r["stage_seconds"].items())
+            + f"; outside the vector engine {outside:.3f}")
+        log("  seam calls (s, with the checks): " + ", ".join(
+            f"{k} {t:.3f}" for k, t in r["seam_seconds"].items())
+            + f"; without the checks {seams:.3f}, {seams / wall:.1%} of "
+              f"the run")
+    checked = {k: int(held.get(k, 0)) for k in launches}
+    if checked != launches:
+        raise AssertionError(f"graph study: held {checked} launches to the "
+                             f"plain versions, counted {launches}")
+    log(f"graph {side}^2: every launch equal to its plain version on its "
+        f"own inputs ({checked}); the checks took {held['seconds']:.3f} s")
+    log(f"graph speedups {out['speedups']}")
+    log(f"graph claims {out['claims']}")
+    # the direction claims hold at the study's size, not at a toy one
+    failed = [] if out["claims"]["all_native"] else ["all_native"]
+    if side == fig13_vcp.FULL_SIDE:
+        failed = fig13_vcp.gate(out)
+        failed += [f"{key}: {r['iters']} iterations"
+                   for key, r in out["runs"].items()
+                   if r["iters"] != max_iters]
+        failed += fig13_vcp.compare(
+            out, json.loads(fig13_vcp.REFERENCE_JSON.read_text()))
+    if failed:
+        raise AssertionError(f"graph study {side}^2: {failed}")
+    sizes = _launch_sizes(search_calls, merge_calls)
+    log(f"graph launches {launches}; launch sizes {sizes}")
+    if device.type == "cuda" and not (launches["search"]
+                                      and launches["merge_path"]):
+        raise AssertionError(f"graph path launched {launches}")
+    return {"launches": launches, "summary": out, "sizes": sizes,
+            "search_calls": search_calls, "merge_calls": merge_calls}
+
+
+# ---------------------------------------------------------------------- #
+# 7-10: the Mamba2 model path
 # ---------------------------------------------------------------------- #
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -1132,7 +1315,7 @@ def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
 
 
 # ---------------------------------------------------------------------- #
-# 10-12: flash attention, block-sparse matmul, the kernel bench
+# 11-13: flash attention, block-sparse matmul, the kernel bench
 # ---------------------------------------------------------------------- #
 def attn_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
     """(b, h, hkv, sq, sk, d) of the ``flash_attention`` call of one
@@ -1373,19 +1556,17 @@ def main() -> int:
     for rec in kernels:
         rec["launches"] = main_run["launches"][rec["name"]]
         rec.pop("shapes")
-    slack = phase_search_slack("cuda", main_run["search_calls"])
-    next(r for r in kernels if r["name"] == "search")["replay"] = slack
-    if slack["total"]["launches"] != main_run["launches"]["search"]:
-        raise AssertionError(f"recorded {slack['total']['launches']} search "
-                             f"launches, counted "
-                             f"{main_run['launches']['search']}")
-    merges = phase_merge_slack("cuda", main_run["merge_calls"])
-    for kernel, rec in merges.items():
-        if rec["launches"] != main_run["launches"][kernel]:
-            raise AssertionError(f"recorded {rec['launches']} {kernel} "
-                                 f"launches, counted "
-                                 f"{main_run['launches'][kernel]}")
-        next(r for r in kernels if r["name"] == kernel)["replay"] = rec
+    replays = phase_replays("cuda", main_run)
+    for rec in kernels:
+        rec["replay"] = replays[rec["name"]]
+    graph = phase_graph("cuda", card=smi)
+    replays = phase_replays("cuda", graph, path="graph")
+    for rec in kernels:
+        n = graph["launches"][rec["name"]]
+        rec["launches_by_path"] = {"main": rec["launches"], "graph": n}
+        rec["launches"] += n
+        rec["graph"] = {"replay": replays[rec["name"]],
+                        "sizes": graph["sizes"].get(rec["name"])}
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
     ssd_rec = phase_ssd_kernel("cuda", card=smi)

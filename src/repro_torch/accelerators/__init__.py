@@ -8,7 +8,8 @@ another (``device='cpu'``: the kernels' plain versions).
 """
 from typing import Any, Dict, Optional
 
-from . import extensor, gamma, matraptor, outerspace, sigma, zoo
+from . import (extensor, gamma, graphicionado, matraptor, outerspace,
+               sigma, zoo)
 
 REGISTRY = {
     "outerspace": outerspace.spec,
@@ -16,6 +17,9 @@ REGISTRY = {
     "gamma": gamma.spec,
     "sigma": sigma.spec,
     "matraptor": matraptor.spec,
+    "graphicionado": graphicionado.graphicionado_spec,
+    "graphdyns": graphicionado.graphdyns_spec,
+    "ours-vcp": graphicionado.improved_spec,
 }
 
 #: per-design partition-size defaults needed to resolve symbolic mappings
@@ -63,4 +67,4 @@ def simulate(design: "str | Any", inputs: Dict[str, Any],
 
 
 __all__ = ["REGISTRY", "DEFAULT_PARAMS", "simulate", "extensor", "gamma",
-           "matraptor", "outerspace", "sigma", "zoo"]
+           "graphicionado", "matraptor", "outerspace", "sigma", "zoo"]

@@ -1,1 +1,2 @@
-"""Benchmarks of the port (``kernels_bench``)."""
+"""Benchmarks of the port: ``kernels_bench``, ``ssd_ab``, the Fig-13 study
+(``fig13_vcp``), Table 2 (``table2_zoo``) and their runner (``run``)."""

@@ -1,0 +1,217 @@
+"""Benchmark harness of the port -- one module per paper table/figure
+that the port has (``benchmarks/run.py``, the reference's harness, cut to
+those).
+
+    python -m repro_torch.bench.run [--only fig13,table2,kernels]
+                                    [--backend python|vector] [--smoke]
+                                    [--device cpu] [--explain-fallbacks]
+
+Prints ``name,us_per_call,derived`` CSV rows (us_per_call is the host
+wall time of the modeled run where meaningful; ``derived`` is the
+figure's metric: modeled seconds, speedup, a 1.0/0.0 claim check, or a
+kernel's largest error against its oracle).  Everything runs on the
+CUDA device unless ``--device`` names another, and raises without one.
+
+``--backend`` selects the execution engine for the benchmarks that
+thread it through (fig13, table2); ``--smoke`` runs fig13 at its smoke
+size; ``--explain-fallbacks`` runs every accelerator design (the graph
+designs under BFS and SSSP) and zoo cascade on small inputs through the
+selected backend (default vector) and prints the per-Einsum
+``fallback_reasons``.  On the card a plan the vector path cannot run
+raises rather than falls back; such an error counts as a fallback, and
+any fallback makes the run exit 1.  A benchmark that raises, a kernel
+row past its oracle limit, a failed gated Fig-13 claim or fallback
+(``fig13_vcp.GATED_CLAIMS``, ``all_native``) and a Table-2 cascade that
+does not validate make the run exit 1 as well.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+import traceback
+from typing import Callable, Dict, List, Tuple
+
+Rows = List[Tuple[str, float, float]]
+
+
+def explain_fallbacks(backend: str, device=None) -> int:
+    """Print ``cascade,einsum,reason`` for every Einsum the selected
+    backend routed through the interpreter, and an ``ERROR`` row for
+    every run that raised; returns the number of both across accelerator
+    designs, graph designs and zoo cascades (0 = full native
+    coverage)."""
+    import numpy as np
+
+    from repro_torch.accelerators import DEFAULT_PARAMS, REGISTRY, simulate
+    from repro_torch.accelerators.zoo import ZOO
+    from repro_torch.bench.table2_zoo import _inputs
+    from repro_torch.bench.workloads import grid_graph
+    from repro_torch.core.einsum import Semiring
+    from repro_torch.core.generator import CascadeSimulator
+    from repro_torch.core.vectorized import VectorBackend
+    from repro_torch.kernels.backends import resolve_device
+
+    device = resolve_device(device)
+
+    def engine():
+        return VectorBackend(device=device) if backend == "vector" \
+            else backend
+
+    rng = np.random.default_rng(0)
+    a = rng.random((24, 24)) * (rng.random((24, 24)) < 0.2)
+    b = rng.random((24, 24)) * (rng.random((24, 24)) < 0.2)
+    shapes = {"m": 24, "k": 24, "n": 24}
+    print("cascade,einsum,reason")
+    n_fallbacks = 0
+
+    def report(name, run: Callable):
+        nonlocal n_fallbacks
+        try:
+            res = run()
+        except Exception as e:
+            # on the card an inadmissible plan or a kernel fault raises:
+            # counted, never passed
+            print(f"{name},-,ERROR: {type(e).__name__}: {e}")
+            n_fallbacks += 1
+            return
+        # seam faults the guarded dispatch recorded; on the card each
+        # also raised above
+        for einsum, evs in sorted(res.downgrade_events.items()):
+            for ev in evs:
+                arrow = f"->{ev.fallback}" if ev.fallback else ""
+                print(f"{name},{einsum},DOWNGRADE {ev.action} "
+                      f"{ev.seam}@{ev.backend}{arrow}: {ev.exc_type}")
+        if not res.fallback_reasons:
+            print(f"{name},-,native")
+            return
+        for einsum, reason in sorted(res.fallback_reasons.items()):
+            n_fallbacks += 1
+            print(f"{name},{einsum},{reason}")
+
+    graph_designs = [n for n in REGISTRY
+                     if n.startswith("graph") or n == "ours-vcp"]
+    for name in sorted(REGISTRY):
+        if name in graph_designs:
+            continue                 # graph designs need graph inputs
+        report(name, lambda: simulate(
+            name, {"A": a, "B": b}, shapes,
+            params=DEFAULT_PARAMS.get(name), backend=engine(),
+            model=False))
+
+    # graph designs: one BFS (unweighted) + one SSSP (weighted) pass
+    # under the min-plus semiring on a small grid frontier
+    adj_w = grid_graph(6, extra=6, weighted=True)
+    adj_u = grid_graph(6, extra=6, weighted=False)
+    v = adj_w.shape[0]
+    a0 = np.zeros(v)
+    a0[0] = 1.0
+    p0 = np.zeros(v)
+    p0[0] = 1.0
+    for name in sorted(graph_designs):
+        for algo, adj in (("bfs", adj_u), ("sssp", adj_w)):
+            kw = {"n_vertices": v} if name == "graphdyns" else {}
+            report(f"{name}/{algo}", lambda: simulate(
+                name, {"G": adj, "A0": a0, "P0": p0}, {"d": v, "s": v},
+                backend=engine(), model=False,
+                semiring=Semiring.min_plus(), weighted=(algo == "sssp"),
+                **kw))
+
+    for name in sorted(ZOO):
+        inputs, shp = _inputs(name, np.random.default_rng(0))
+        report(name, lambda: CascadeSimulator(
+            ZOO[name](), model=False, backend=engine()).run(dict(inputs),
+                                                              shp))
+    if n_fallbacks == 0:
+        print("# full native coverage", file=sys.stderr)
+    return n_fallbacks
+
+
+def _failed_claims(rows: Rows, claims) -> None:
+    """Raise when a claim row of ``claims`` reads 0.0, so that the run
+    counts a failed claim as a failed benchmark."""
+    failed = [name for name, _, ok in rows if name in claims and not ok]
+    if failed:
+        raise AssertionError(f"claims failed: {failed}")
+
+
+def _fig13(smoke: bool, backend: str, device) -> Rows:
+    from repro_torch.bench import fig13_vcp
+    rows = fig13_vcp.run(smoke=smoke, backend=backend, device=device)
+    _failed_claims(rows, [f"fig13/claim/{c}" for c in
+                          fig13_vcp.GATED_CLAIMS + ("all_native",)])
+    return rows
+
+
+def _table2(smoke: bool, backend: str, device) -> Rows:
+    from repro_torch.bench import table2_zoo
+    rows = table2_zoo.run(backend=backend, device=device)
+    _failed_claims(rows, ["table2/claim/all_cascades_validate"])
+    return rows
+
+
+def _kernels(smoke: bool, backend: str, device) -> Rows:
+    from repro_torch.bench import kernels_bench
+    rows = kernels_bench.run(device)
+    bad = [(r.name, r.err, r.limit) for r in rows if not r.err <= r.limit]
+    if bad:
+        raise AssertionError(f"kernel rows past their oracle limit "
+                             f"(name, err, limit): {bad}")
+    return [(r.name, r.us_per_call, r.err) for r in rows]
+
+
+#: the benchmarks the port has; the reference's table1, fig9-fig11,
+#: roofline, backend and dse wait for their modules
+BENCHES: Dict[str, Callable[[bool, str, object], Rows]] = {
+    "fig13": _fig13,
+    "table2": _table2,
+    "kernels": _kernels,
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Benchmark harness of the port.  --trace (a Perfetto "
+        "trace of the run) waits for the port of obs/export.py.")
+    ap.add_argument("--only", type=str, default=None,
+                    help="comma-separated subset of: " + ",".join(BENCHES))
+    ap.add_argument("--backend", type=str, default="vector",
+                    choices=["python", "vector"],
+                    help="execution backend for fig13 and table2")
+    ap.add_argument("--smoke", action="store_true",
+                    help="fig13 at its smoke size")
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device (default: the CUDA device)")
+    ap.add_argument("--explain-fallbacks", action="store_true",
+                    help="print per-Einsum fallback_reasons for every "
+                    "accelerator and zoo cascade, then exit (1 on any "
+                    "fallback or error)")
+    args = ap.parse_args(argv)
+    from repro_torch.kernels.backends import resolve_device
+    device = resolve_device(args.device)
+    if args.explain_fallbacks:
+        return 1 if explain_fallbacks(args.backend, device) else 0
+    names = args.only.split(",") if args.only else list(BENCHES)
+    unknown = [n for n in names if n not in BENCHES]
+    if unknown:
+        ap.error(f"unknown benchmarks {unknown}; the port has "
+                 f"{list(BENCHES)}")
+    print("name,us_per_call,derived")
+    failures = 0
+    for name in names:
+        t0 = time.time()
+        try:
+            for rname, us, derived in BENCHES[name](args.smoke,
+                                                    args.backend, device):
+                print(f"{rname},{us:.1f},{derived}")
+            print(f"# {name} done in {time.time() - t0:.1f}s",
+                  file=sys.stderr)
+        except Exception:
+            failures += 1
+            traceback.print_exc()
+            print(f"{name}/FAILED,0.0,0.0")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,6 +50,17 @@ res = simulate("gamma", {"A": a, "B": b}, {"m": 16, "k": 16, "n": 16},
 assert res.fallback_reasons == {} and res.downgrade_events == {}
 assert np.allclose(res["Z"].to_dense(), a.T @ b)
 
+from repro_torch.accelerators import REGISTRY
+from repro_torch.bench import fig13_vcp
+from repro_torch.bench.workloads import sparse_grid_graph
+from repro_torch.core.vectorized import VectorBackend
+g = sparse_grid_graph(8, extra=4)
+res, iters = fig13_vcp.run_vcp(REGISTRY["graphdyns"](weighted=False,
+                                                     n_vertices=64),
+                               g, 64, VectorBackend(device="cpu"))
+assert res.fallback_reasons == {} and iters == 15
+assert res["P1"].nnz == 64
+
 import torch
 import repro_torch.configs as C
 from repro_torch.launch.serve import Request, Server
@@ -193,8 +204,81 @@ def test_chip_smoke_merge_replay_rehearses_on_cpu(chip_smoke):
     assert chip_smoke.launch_floor("cpu") is None
 
 
+def test_chip_smoke_graph_phase_rehearses_on_cpu(chip_smoke):
+    """Phase 6 at a tiny size: the check runs at 6^2 vertices and the
+    study at 8^2 over 8 iterations; the CPU takes the plain versions, so
+    no launches are counted or recorded."""
+    out = chip_smoke.phase_graph("cpu", side=8, check_side=6, max_iters=8)
+    assert out["launches"] == {"search": 0, "merge_path": 0,
+                               "multi_merge_ranks": 0}
+    assert out["search_calls"] == [] and out["merge_calls"] == []
+    assert out["sizes"] == {}
+    runs = out["summary"]["runs"]
+    assert list(runs) == [f"{a}/{d}" for a in ("bfs", "sssp")
+                          for d in ("graphicionado", "graphdyns", "ours")]
+    for r in runs.values():
+        assert r["iters"] == 8 and r["fallback_reasons"] == {}
+        assert r["seam_seconds"] and r["stage_seconds"]
+    assert out["summary"]["claims"]["all_native"]
+    # the replays at the path's sizes: nothing recorded on the CPU, so
+    # every kernel replays 0 launches, as the path counted
+    replays = chip_smoke.phase_replays("cpu", out, path="graph")
+    assert set(replays) == {"search", "merge_path", "multi_merge_ranks"}
+    assert replays["search"]["total"]["launches"] == 0
+    assert replays["merge_path"]["launches"] == 0
+    with pytest.raises(AssertionError, match="counted 1"):
+        chip_smoke.phase_replays("cpu", dict(
+            out, launches=dict(out["launches"], merge_path=1)), path="graph")
+
+
+def test_chip_smoke_holds_each_launch_to_its_plain_version(chip_smoke,
+                                                          monkeypatch):
+    """With ``held``, the recording hooks compare every wrapper call
+    with its plain version on the same tensors and count the calls that
+    launch; a wrong result raises."""
+    from repro_torch.kernels.backends import CudaKernels
+    hay = torch.tensor([2, 5, 9, 1 << 40])
+    probes = torch.tensor([1, 5, 1 << 40])
+    held, search_calls, merge_calls = {}, [], []
+    with chip_smoke.record_search_calls(search_calls, held), \
+            chip_smoke.record_merge_calls(merge_calls, held):
+        CudaKernels._search(hay, probes)
+        CudaKernels._search(hay, probes[:0])        # launches nothing
+        CudaKernels._merge(hay, probes)
+        CudaKernels._multi_merge(torch.cat([hay, probes]),
+                                 torch.tensor([0, 4, 7]))
+    assert {k: held[k] for k in ("search", "merge_path",
+                                 "multi_merge_ranks")} == \
+        {"search": 1, "merge_path": 1, "multi_merge_ranks": 1}
+    assert held["seconds"] >= 0
+    # a wrong position and a wrong source flag are caught
+    monkeypatch.setattr(CudaKernels, "_search", staticmethod(
+        lambda h, p: chip_smoke.search_plain(h, p).flip(0)))
+    with pytest.raises(AssertionError, match="search differs"):
+        with chip_smoke.record_search_calls([], {}):
+            CudaKernels._search(hay, probes)
+
+    def wrong_flag(a, b):
+        merged, src = chip_smoke.merge_path_plain(a, b)
+        return merged, 1 - src
+    monkeypatch.setattr(CudaKernels, "_merge", staticmethod(wrong_flag))
+    with pytest.raises(AssertionError, match="merge_path differs"):
+        with chip_smoke.record_merge_calls([], {}):
+            CudaKernels._merge(hay, probes)
+
+
+def test_chip_smoke_launch_sizes(chip_smoke):
+    sizes = chip_smoke._launch_sizes(
+        [(10, 5, True), (3, 0, True), (9, 7, False), (4, 1, True)],
+        [("merge_path", (3, 4)), ("merge_path", (0, 0)),
+         ("merge_path", (10, 0)), ("multi_merge_ranks", (1, 2, 3))])
+    assert sizes == {"search": {"largest": 7, "median": 5},
+                     "merge_path": {"largest": 10, "median": 8},
+                     "multi_merge_ranks": {"largest": 6, "median": 6}}
+
+
 def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):
-    """Phases 6-9 at the smoke config: the CPU takes the plain version
+    """Phases 7-10 at the smoke config: the CPU takes the plain version
     of ``ssd_chunk``, so no launches are counted."""
     import repro_torch.configs as C
     # the first large multithreaded torch.exp of a process can come back
@@ -313,7 +397,7 @@ def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
     assert build._target("k") not in (first, second)
 
 def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
-    """Phases 10-15 at small shapes and the smoke config: the CPU takes
+    """Phases 11-16 at small shapes and the smoke config: the CPU takes
     the plain versions, so no launches are counted."""
     import repro_torch.configs as C
     cfg = C.get_smoke("qwen2-7b")

@@ -595,3 +595,39 @@ def test_dense_smoke_prefill_on_card_launches_flash(cuda_device):
     assert flash_attention.launches == cfg.n_layers
     assert logits.shape == (2, 64, 512)
     assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,design", [("bfs", "graphdyns"),
+                                         ("sssp", "ours")])
+def test_graph_design_on_card_matches_plain(cuda_device, algo, design):
+    """One BFS and one SSSP run of the Fig-13 study at 24^2 vertices on
+    the kernels equal the same run on the plain versions on the card:
+    outputs, counters, Report and iterations; the kernels launched."""
+    from repro_torch.bench import fig13_vcp
+    from repro_torch.core.vectorized import VectorBackend
+    from repro_torch.kernels.backends import TorchKernels
+    side = 24
+    v = side * side
+    _, weighted, g = next(x for x in fig13_vcp.graphs(side) if x[0] == algo)
+    spec = fig13_vcp.designs(weighted, v)[design]
+    runs = []
+    for backend in (VectorBackend(device=cuda_device), VectorBackend(
+            device=cuda_device, kernel_backend=TorchKernels(cuda_device))):
+        for k in KERNELS:
+            k.launches = 0
+        ci = CollectingInstr()
+        res, iters = fig13_vcp.run_vcp(spec, g, v, backend, extra_instr=ci)
+        runs.append((res, ci, iters, {k.__name__: k.launches
+                                      for k in KERNELS}))
+    (rk, ck, ik, lk), (rp, cp, ip, lp) = runs
+    assert lk["search"] > 0 and lk["merge_path"] > 0
+    assert set(lp.values()) == {0}
+    assert ik == ip
+    assert rk.fallback_reasons == {} and rk.downgrade_events == {}
+    for name in rp.tensors:
+        assert list(rk[name].iter_leaves()) == list(rp[name].iter_leaves())
+    for attr in ("touch_counts", "iter_counts", "compute_counts",
+                 "isect_steps", "isect_matches", "advances", "merges"):
+        assert getattr(ck, attr) == getattr(cp, attr), attr
+    assert rk.report.seconds == rp.report.seconds
