@@ -37,37 +37,47 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     (``BENCH_graph.json``), its claims the reference's; then
                     ``search`` and the merges replayed at the sizes of
                     their launches there;
-  7. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
+  7. dse         -- the design-space exploration layer on Gamma at the main
+                    phase's size: the 16-point FiberCache axis and a
+                    256-point axis on the analytic backend (points/s, every
+                    point analytic), four capacities on the hand kernels
+                    (each point equal to its own ``simulate`` call, whose
+                    launches are held to the plain versions; ``search``
+                    launches counted; analytic/vector ratios), then at
+                    2048^2 the thread executor, crash and resume, an
+                    injected seam fault (recorded, the point fails, no
+                    plain version runs) and the process executor;
+  8. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
                     reference's test shapes, timed beside its bound
                     (TFLOP/s and share of it);
-  8. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
+  9. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
                     batch 4 x 2048 tokens, with the kernel and with stage
                     (1) on the plain version: logits and greedy tokens
                     agree, one kernel launch per layer;
-  9. consistency -- in fp32 at full width, the last-position logits of a
+ 10. consistency -- in fp32 at full width, the last-position logits of a
                     512-token prefill against 512 ``serve_step`` decode
                     steps;
- 10. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
+11. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
                     prompt tokens and 16 new tokens each;
- 11. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
+12. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
                     at the Qwen2-7B prefill shape and the reference's test
                     shapes (fp32 and bf16, causal and not, a ragged KV
                     tail), timed beside its bound (TFLOP/s and share of
                     it) and SDPA;
- 12. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
+13. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
                     the reference's test shapes (all four dtype pairs) and
                     an 8192 x 8192 A at 30% tile density (fp32 and bf16),
                     there timed beside its route's bound and a dense
                     ``torch.matmul`` in the same dtype;
- 13. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
+14. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
                     at the reference bench's shapes against its oracle (the
                     path that launches ``block_sparse_matmul``);
- 14. dense_prefill -- phase 8 for Qwen2-7B at full width: one
+15. dense_prefill -- phase 9 for Qwen2-7B at full width: one
                     ``flash_attention`` launch per layer, and the same
                     prefill with ``mha`` on the plain version;
- 15. dense_consistency -- phase 9 for Qwen2-7B, 256 tokens;
- 16. dense_serve  -- phase 10 for Qwen2-7B.
+16. dense_consistency -- phase 10 for Qwen2-7B, 256 tokens;
+17. dense_serve  -- phase 11 for Qwen2-7B.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -84,6 +94,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -103,7 +114,8 @@ from repro_torch.core.generator import check_against_dense  # noqa: E402
 from repro_torch.core.iteration import PythonBackend  # noqa: E402
 from repro_torch.core.trace import CollectingInstr  # noqa: E402
 from repro_torch.core.vectorized import VectorBackend  # noqa: E402
-from repro_torch.bench import fig13_vcp, kernels_bench  # noqa: E402
+from repro_torch.bench import dse_sweep, fig13_vcp, kernels_bench  # noqa: E402
+from repro_torch.dse import SweepEngine  # noqa: E402
 from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
                                  block_sparse_matmul,
                                  block_sparse_matmul_plain, build,
@@ -112,6 +124,7 @@ from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
                                  merge_path_plain, multi_merge_ranks,
                                  multi_merge_ranks_plain, search,
                                  search_plain, ssd_chunk, ssd_chunk_plain)
+from repro_torch.kernels import backends as kbk  # noqa: E402
 from repro_torch.kernels.backends import (CudaKernels,  # noqa: E402
                                           TorchKernels)
 from repro_torch.launch.serve import Request, Server  # noqa: E402
@@ -122,6 +135,7 @@ from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.obs.spans import trace_session  # noqa: E402
+from repro_torch.testing import faults  # noqa: E402
 
 #: H100 SXM device-memory rate and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -140,6 +154,13 @@ MAIN_CONFIGS = (("gamma", 8192, 100_000), ("extensor", 4096, 40_000),
                 ("outerspace", 2048, 20_000), ("sigma", 2048, 20_000),
                 ("matraptor", 2048, 20_000), ("sparse-add", 8192, 100_000),
                 ("sparse-add-3way", 8192, 100_000))
+
+#: phase dse: Gamma at the main phase's size (the low end of the paper's
+#: Table 4 range), its FiberCache capacities (MB) swept on the vector path,
+#: and the smaller Gamma that the engine's behaviour is checked on
+DSE_SIZE = (8192, 100_000)
+DSE_VECTOR_CAPS = (0.002, 0.05, 1.0, 6.0)
+DSE_ENGINE_SIZE = (2048, 20_000)
 
 #: the kernels' entries in the result line
 KERNEL_INFO = {
@@ -1049,7 +1070,216 @@ def phase_graph(device, side: int = fig13_vcp.FULL_SIDE,
 
 
 # ---------------------------------------------------------------------- #
-# 7-10: the Mamba2 model path
+# 7: design-space exploration (paper Sec. 8)
+# ---------------------------------------------------------------------- #
+def _objectives(results) -> List[Tuple]:
+    return [(r.label, r.seconds, r.energy_pj, r.dram_bytes,
+             dict(r.fallback_reasons), r.error) for r in results]
+
+
+def _dse_engine_checks(device, size, seed: int, where) -> None:
+    """The sweep engine's behaviour on ``device``'s vector path at
+    ``size``, over the capacities ``DSE_VECTOR_CAPS``: the thread
+    executor (4 workers) equals the serial sweep; a crash injected at
+    point 3 under a checkpoint, then a resumed sweep, equals it bit for
+    bit; a seam fault injected into ``intersect_keys`` is recorded as a
+    DowngradeEvent, passes
+    ``verify_no_silent_downgrades`` and runs no plain version -- on the
+    card it fails its point with a structured error, on the CPU the
+    interpreter reruns the Einsum; the process executor (2 workers) on
+    the analytic backend equals its serial sweep."""
+    device = torch.device(device)
+    inputs, shapes = dse_sweep.sparse_workload(*size, seed)
+    pts = dse_sweep.fibercache_space(DSE_VECTOR_CAPS).grid()
+
+    def engine(**kw):
+        return SweepEngine(inputs, shapes, backend="vector", device=device,
+                           **kw)
+
+    t0 = time.perf_counter()
+    serial = engine().sweep(pts)
+    if not all(r.ok and not r.fallback_reasons for r in serial):
+        raise AssertionError(f"dse engine: {_objectives(serial)}")
+    threaded = engine(max_workers=4).sweep(pts)
+    if _objectives(threaded) != _objectives(serial):
+        raise AssertionError("dse: the thread executor differs from the "
+                             "serial sweep")
+    with tempfile.TemporaryDirectory() as ckpt:
+        faults.install_injector(faults.FaultInjector(
+            [faults.FaultSpec(kind="crash", point=pts[3].label, at=1)]))
+        try:
+            engine().sweep(pts, checkpoint_dir=ckpt, checkpoint_every=1)
+            raise AssertionError("dse: the injected crash did not fire")
+        except faults.SimulatedCrash:
+            pass
+        finally:
+            faults.clear_injector()
+        resumed = engine().sweep(pts, checkpoint_dir=ckpt, resume=True)
+    if sum(r.restored for r in resumed) != 3 or \
+            _objectives(resumed) != _objectives(serial):
+        raise AssertionError("dse: crash and resume differ from the "
+                             "uninterrupted sweep")
+    # the seam fault: count every call of a plain version and of the
+    # interpreter while it is armed
+    plain_calls = []
+    plain = {k: getattr(TorchKernels, k)
+             for k in ("_search", "_merge", "_multi_merge")}
+    execute = PythonBackend.execute
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            plain_calls.append(fn)
+            return fn(*args, **kwargs)
+        return call
+
+    kbk.reset_guard_state()
+    for k, fn in plain.items():
+        setattr(TorchKernels, k, staticmethod(counted(fn)))
+    PythonBackend.execute = counted(execute)
+    faults.install_injector(faults.FaultInjector([faults.FaultSpec(
+        kind="raise", seam="intersect_keys", at=1)]))
+    try:
+        hit = engine().sweep(pts[:2])
+        fired = faults.active_injector().seam_faults_fired
+        events = kbk.events_recorded()
+        faults.verify_no_silent_downgrades()
+    finally:
+        faults.clear_injector()
+        for k, fn in plain.items():
+            setattr(TorchKernels, k, staticmethod(fn))
+        PythonBackend.execute = execute
+        kbk.reset_guard_state()
+    if fired != 1 or events < 1:
+        raise AssertionError(f"dse: {fired} seam faults fired, {events} "
+                             f"DowngradeEvents recorded")
+    if _objectives(hit[1:]) != _objectives(serial[1:2]):
+        raise AssertionError("dse: the point after the seam fault differs")
+    if device.type == "cuda":
+        bad = hit[0]
+        if bad.ok or bad.error_type != "KernelChainExhausted" or \
+                not bad.traceback or plain_calls:
+            raise AssertionError(f"dse: seam fault on the card: {bad.error}; "
+                                 f"{len(plain_calls)} plain calls")
+        outcome = (f"the point failed ({bad.error_type}: {bad.error[:90]}), "
+                   f"no plain version and no interpreter ran")
+    else:
+        if not hit[0].ok or not hit[0].fallback_reasons:
+            raise AssertionError(f"dse: seam fault on the CPU: {hit[0]}")
+        outcome = "the CPU's interpreter reran the Einsum"
+    aserial = SweepEngine(inputs, shapes).sweep(pts)
+    pooled = SweepEngine(inputs, shapes, executor="process",
+                         max_workers=2).sweep(pts)
+    if _objectives(pooled) != _objectives(aserial):
+        raise AssertionError("dse: the process executor differs from the "
+                             "serial analytic sweep")
+    log(f"dse engine, Gamma {size[0]}^2 nnz {size[1]}, {len(pts)} points on "
+        f"{where}: 4 threads equal serial; crash at point 3 then resume "
+        f"equal (3 restored); a seam fault recorded ({events} event), "
+        f"{outcome}; 2 processes (analytic) equal "
+        f"serial; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_dse(device, size=DSE_SIZE, vector_caps=DSE_VECTOR_CAPS,
+              engine_size=DSE_ENGINE_SIZE, seed: int = 2,
+              card: str = "") -> Dict:
+    """The design-space exploration layer (``repro_torch.dse``) on Gamma
+    at ``size`` (rows = cols, nonzeros per operand): the FiberCache axis
+    (16 points) and the 256-point scale axis on the analytic backend,
+    every point analytic with no fallback, in points/s (the median and
+    range of ``dse_sweep.ANALYTIC_REPEATS`` sweeps); then
+    ``vector_caps`` on ``device``'s vector path, traced: every point
+    native with no downgrade and bit-identical to one ``simulate`` call
+    of it (whose launches are each held to their plain version), with
+    its analytic/vector ratios; then the engine's behaviour at
+    ``engine_size`` (``_dse_engine_checks``).  Returns the kernels'
+    launches in the vector sweep and its numbers."""
+    device = torch.device(device)
+    where = card or device
+    n, nnz = size
+    inputs, shapes = dse_sweep.sparse_workload(n, nnz, seed)
+    eng = SweepEngine(inputs, shapes)
+    out: Dict = {"analytic": {}}
+    analytic = {}
+    for axis, caps in (("fibercache", dse_sweep.CAPACITIES_MB),
+                       ("scale", dse_sweep.scale_capacities())):
+        pts = dse_sweep.fibercache_space(caps).grid()
+        eng.prime(pts[0])
+        res, secs = dse_sweep.timed_sweeps(eng, pts,
+                                           dse_sweep.ANALYTIC_REPEATS)
+        bad = [r.label for r in res if not r.ok or r.fallback_reasons]
+        if bad:
+            raise AssertionError(f"dse analytic points not analytic: {bad}")
+        analytic.update({r.label: r for r in res})
+        rates = sorted(len(pts) / dt for dt in secs)
+        out["analytic"][axis] = {"points": len(pts), "seconds": secs,
+                                 "points_per_s": statistics.median(rates)}
+        log(f"dse analytic, {axis} axis, Gamma {n}^2 nnz {nnz}: "
+            f"{len(pts)} points, {len(secs)} sweeps of "
+            f"{[round(dt, 4) for dt in secs]} s: median "
+            f"{statistics.median(rates):.1f} points/s, range "
+            f"{rates[0]:.1f}-{rates[-1]:.1f} (host numpy; {where})")
+    pts = dse_sweep.fibercache_space(vector_caps).grid()
+    veng = SweepEngine(inputs, shapes, backend="vector", device=device,
+                       keep_reports=True)
+    for k in KERNELS:
+        k.launches = 0
+    with trace_session() as tr:
+        t0 = time.perf_counter()
+        vec = veng.sweep(pts)
+        _sync(device)
+        dt = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in KERNELS}
+    seams = sum(sp["dur"] for sp in tr.spans(cat="seam")) / 1e6
+    for r in vec:
+        if not r.ok or r.fallback_reasons or r.report.downgrade_events:
+            raise AssertionError(f"dse vector {r.label}: {r.error} "
+                                 f"{r.fallback_reasons}")
+    if device.type == "cuda" and not launches["search"]:
+        raise AssertionError(f"dse vector sweep launched {launches}")
+    out.update(launches=launches, vector={
+        "points": len(pts), "seconds": dt, "points_per_s": len(pts) / dt,
+        "point_seconds": [r.wall_seconds for r in vec],
+        "seam_seconds": seams, "seam_share": seams / dt})
+    log(f"dse vector, Gamma {n}^2 nnz {nnz}, {len(pts)} points on {where}: "
+        f"{dt:.3f} s traced, {len(pts) / dt:.4f} points/s, host s a point "
+        f"{[round(r.wall_seconds, 3) for r in vec]}; seam calls "
+        f"{seams:.3f} s ({seams / dt:.2%}); launches {launches}")
+    # each point against one simulate call of it; every launch of those
+    # calls held to its plain version on its own inputs
+    held: Dict[str, float] = {"seconds": 0.0}
+    for k in KERNELS:
+        k.launches = 0
+    with record_search_calls([], held), record_merge_calls([], held):
+        for p, r in zip(pts, vec):
+            one = simulate("gamma", inputs, shapes, device=device,
+                           **p.spec_kwargs).report
+            if (one.seconds, one.energy_pj, one.dram_bytes) != \
+                    (r.seconds, r.energy_pj, r.dram_bytes):
+                raise AssertionError(f"dse {r.label}: the sweep's point "
+                                     f"differs from its simulate call")
+    checked = {k.__name__: int(held.get(k.__name__, 0)) for k in KERNELS}
+    if checked != {k.__name__: k.launches for k in KERNELS}:
+        raise AssertionError(f"dse: held {checked} launches, counted "
+                             f"{[k.launches for k in KERNELS]}")
+    log(f"dse vector points equal their simulate calls; those calls' "
+        f"launches {checked} each equal their plain version")
+    ratios = []
+    for r in vec:
+        a = analytic[r.label]
+        ratios.append({"label": r.label, **{
+            f: getattr(a, f) / getattr(r, f)
+            for f in ("seconds", "energy_pj", "dram_bytes")}})
+        log(f"  {r.label}: analytic / vector seconds "
+            f"{ratios[-1]['seconds']:.4f}, energy "
+            f"{ratios[-1]['energy_pj']:.4f}, DRAM bytes "
+            f"{ratios[-1]['dram_bytes']:.4f}")
+    out["ratios"] = ratios
+    _dse_engine_checks(device, engine_size, seed + 1, where)
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# 8-11: the Mamba2 model path
 # ---------------------------------------------------------------------- #
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -1315,7 +1545,7 @@ def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
 
 
 # ---------------------------------------------------------------------- #
-# 11-13: flash attention, block-sparse matmul, the kernel bench
+# 12-14: flash attention, block-sparse matmul, the kernel bench
 # ---------------------------------------------------------------------- #
 def attn_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
     """(b, h, hkv, sq, sk, d) of the ``flash_attention`` call of one
@@ -1567,6 +1797,11 @@ def main() -> int:
         rec["launches"] += n
         rec["graph"] = {"replay": replays[rec["name"]],
                         "sizes": graph["sizes"].get(rec["name"])}
+    dse = phase_dse("cuda", card=smi)
+    for rec in kernels:
+        n = dse["launches"][rec["name"]]
+        rec["launches_by_path"]["dse"] = n
+        rec["launches"] += n
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
     ssd_rec = phase_ssd_kernel("cuda", card=smi)

@@ -38,7 +38,9 @@ def simulate(design: "str | Any", inputs: Dict[str, Any],
     AcceleratorSpec) on real tensors; returns the SimResult.
 
     ``backend`` is 'vector' (columnar CSF co-iteration), 'python' (the
-    interpreter oracle) or an ExecutorBackend instance.  ``device``
+    interpreter oracle), 'analytic' (closed-form density propagation in
+    host numpy; no output data, no device) or an ExecutorBackend
+    instance.  ``device``
     selects where a 'vector' backend runs its seams: None means the
     CUDA device, and raises when there is none; 'cpu' runs the plain
     versions.  A backend instance brings its own device.

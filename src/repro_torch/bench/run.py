@@ -2,9 +2,10 @@
 that the port has (``benchmarks/run.py``, the reference's harness, cut to
 those).
 
-    python -m repro_torch.bench.run [--only fig13,table2,kernels]
+    python -m repro_torch.bench.run [--only fig13,table2,kernels,dse]
                                     [--backend python|vector] [--smoke]
                                     [--device cpu] [--explain-fallbacks]
+                                    [--trace OUT]
 
 Prints ``name,us_per_call,derived`` CSV rows (us_per_call is the host
 wall time of the modeled run where meaningful; ``derived`` is the
@@ -13,16 +14,18 @@ kernel's largest error against its oracle).  Everything runs on the
 CUDA device unless ``--device`` names another, and raises without one.
 
 ``--backend`` selects the execution engine for the benchmarks that
-thread it through (fig13, table2); ``--smoke`` runs fig13 at its smoke
-size; ``--explain-fallbacks`` runs every accelerator design (the graph
-designs under BFS and SSSP) and zoo cascade on small inputs through the
-selected backend (default vector) and prints the per-Einsum
-``fallback_reasons``.  On the card a plan the vector path cannot run
-raises rather than falls back; such an error counts as a fallback, and
-any fallback makes the run exit 1.  A benchmark that raises, a kernel
-row past its oracle limit, a failed gated Fig-13 claim or fallback
-(``fig13_vcp.GATED_CLAIMS``, ``all_native``) and a Table-2 cascade that
-does not validate make the run exit 1 as well.
+thread it through (fig13, table2, and dse beside its analytic sweep);
+``--smoke`` runs fig13 and dse at their smoke sizes; ``--trace OUT``
+writes a Perfetto-loadable Chrome trace (``*.jsonl``: the structured
+event log) of every benchmark in the run; ``--explain-fallbacks`` runs
+every accelerator design (the graph designs under BFS and SSSP) and zoo
+cascade on small inputs through the selected backend (default vector)
+and prints the per-Einsum ``fallback_reasons``.  On the card a plan the
+vector path cannot run raises rather than falls back; such an error
+counts as a fallback, and any fallback makes the run exit 1.  A
+benchmark that raises, a kernel row past its oracle limit, a failed gated
+Fig-13 claim or fallback (``fig13_vcp.GATED_CLAIMS``, ``all_native``) and
+a Table-2 cascade that does not validate make the run exit 1 as well.
 """
 from __future__ import annotations
 
@@ -150,6 +153,11 @@ def _table2(smoke: bool, backend: str, device) -> Rows:
     return rows
 
 
+def _dse(smoke: bool, backend: str, device) -> Rows:
+    from repro_torch.bench import dse_sweep
+    return dse_sweep.run(backend=backend, smoke=smoke, device=device)
+
+
 def _kernels(smoke: bool, backend: str, device) -> Rows:
     from repro_torch.bench import kernels_bench
     rows = kernels_bench.run(device)
@@ -161,31 +169,34 @@ def _kernels(smoke: bool, backend: str, device) -> Rows:
 
 
 #: the benchmarks the port has; the reference's table1, fig9-fig11,
-#: roofline, backend and dse wait for their modules
+#: roofline and backend wait for their modules
 BENCHES: Dict[str, Callable[[bool, str, object], Rows]] = {
     "fig13": _fig13,
     "table2": _table2,
     "kernels": _kernels,
+    "dse": _dse,
 }
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        description="Benchmark harness of the port.  --trace (a Perfetto "
-        "trace of the run) waits for the port of obs/export.py.")
+    ap = argparse.ArgumentParser(description="Benchmark harness of the port.")
     ap.add_argument("--only", type=str, default=None,
                     help="comma-separated subset of: " + ",".join(BENCHES))
     ap.add_argument("--backend", type=str, default="vector",
                     choices=["python", "vector"],
-                    help="execution backend for fig13 and table2")
+                    help="execution backend for fig13, table2 and dse")
     ap.add_argument("--smoke", action="store_true",
-                    help="fig13 at its smoke size")
+                    help="fig13 and dse at their smoke sizes")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: the CUDA device)")
     ap.add_argument("--explain-fallbacks", action="store_true",
                     help="print per-Einsum fallback_reasons for every "
                     "accelerator and zoo cascade, then exit (1 on any "
                     "fallback or error)")
+    ap.add_argument("--trace", type=str, default=None, metavar="OUT",
+                    help="write a Perfetto-loadable Chrome trace "
+                    "(*.jsonl for the structured event log) covering "
+                    "every benchmark in the run")
     args = ap.parse_args(argv)
     from repro_torch.kernels.backends import resolve_device
     device = resolve_device(args.device)
@@ -196,20 +207,22 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown benchmarks {unknown}; the port has "
                  f"{list(BENCHES)}")
+    from repro_torch.obs.export import cli_trace
     print("name,us_per_call,derived")
     failures = 0
-    for name in names:
-        t0 = time.time()
-        try:
-            for rname, us, derived in BENCHES[name](args.smoke,
-                                                    args.backend, device):
-                print(f"{rname},{us:.1f},{derived}")
-            print(f"# {name} done in {time.time() - t0:.1f}s",
-                  file=sys.stderr)
-        except Exception:
-            failures += 1
-            traceback.print_exc()
-            print(f"{name}/FAILED,0.0,0.0")
+    with cli_trace(args.trace):
+        for name in names:
+            t0 = time.time()
+            try:
+                for rname, us, derived in BENCHES[name](
+                        args.smoke, args.backend, device):
+                    print(f"{rname},{us:.1f},{derived}")
+                print(f"# {name} done in {time.time() - t0:.1f}s",
+                      file=sys.stderr)
+            except Exception:
+                failures += 1
+                traceback.print_exc()
+                print(f"{name}/FAILED,0.0,0.0")
     return 1 if failures else 0
 
 

@@ -5,10 +5,14 @@ Public API:
     CascadeSimulator   -- spec + real tensors -> outputs + Report
     FTensor / Fiber    -- the fibertree abstraction
     CSF                -- columnar compressed-sparse-fiber arrays
-    ExecutorBackend    -- pluggable execution engines (python | vector)
+    ExecutorBackend    -- pluggable execution engines
+                          (python | vector | analytic)
+    TensorDensity      -- per-rank occupancy models (analytic engine)
     Semiring           -- redefinable (+, *) for graph algorithms
 """
+from .analytic import AnalyticBackend
 from .csf import CSF
+from .density import TensorDensity
 from .einsum import Einsum, Semiring, dense_reference, parse_einsum
 from .fibertree import Fiber, FTensor
 from .generator import CascadeSimulator, SimResult, check_against_dense
@@ -24,6 +28,7 @@ __all__ = [
     "Fiber", "FTensor", "CSF", "CascadeSimulator", "SimResult",
     "check_against_dense", "MappingResolver", "ENERGY_TABLE_PJ",
     "Report", "AcceleratorSpec", "load_spec",
-    "ExecutorBackend", "PythonBackend", "VectorBackend", "get_backend",
+    "ExecutorBackend", "PythonBackend", "VectorBackend",
+    "AnalyticBackend", "TensorDensity", "get_backend",
     "VectorPlan", "lower_vector_plan",
 ]

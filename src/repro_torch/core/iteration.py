@@ -638,7 +638,10 @@ class ExecutorBackend:
     (plan, tensors) inputs.  ``PythonBackend`` is the per-element
     correctness oracle; ``VectorBackend`` (core/vectorized.py) runs
     per-rank co-iteration over columnar CSF arrays and reports the same
-    action counts in aggregate.
+    action counts in aggregate; ``AnalyticBackend`` (core/analytic.py)
+    relaxes the contract -- it models the counts statistically and
+    returns an *empty* output tensor, trading data fidelity for
+    closed-form speed (see DESIGN.md).
 
     Optional protocol extensions the generator probes with getattr:
 
@@ -727,9 +730,10 @@ class PythonBackend(ExecutorBackend):
 
 def get_backend(backend: "str | ExecutorBackend | None") -> ExecutorBackend:
     """Resolve a backend selection
-    ('python' | 'vector' | instance).  A bare 'vector' runs its seams
-    on the CUDA device; pass a ``VectorBackend(device=...)`` instance to
-    choose another."""
+    ('python' | 'vector' | 'analytic' | instance).  A bare 'vector' runs
+    its seams on the CUDA device; pass a ``VectorBackend(device=...)``
+    instance to choose another.  'analytic' is host numpy: it touches no
+    device."""
     if backend is None:
         return PythonBackend()
     if isinstance(backend, ExecutorBackend):
@@ -739,5 +743,8 @@ def get_backend(backend: "str | ExecutorBackend | None") -> ExecutorBackend:
     if backend == "vector":
         from .vectorized import VectorBackend
         return VectorBackend()
+    if backend == "analytic":
+        from .analytic import AnalyticBackend
+        return AnalyticBackend()
     raise ValueError(f"unknown execution backend {backend!r} "
-                     f"(expected 'python' or 'vector')")
+                     f"(expected 'python', 'vector' or 'analytic')")

@@ -24,9 +24,10 @@ Parity contract: for any admissible input every seam returns arrays
 bit-identical to the reference numpy lowering -- positions, union
 orders and float accumulation order included.
 
-Every seam call goes through ``GuardedKernels``: seam postconditions
-and a ``DowngradeEvent`` for every fault.  Its chain holds the one
-lowering the device selects; when that fails, ``KernelChainExhausted``
+Every seam call goes through ``GuardedKernels``: the fault injector's
+hooks (``repro_torch.testing.faults``), seam postconditions and a
+``DowngradeEvent`` for every fault.  Its chain holds the one lowering
+the device selects; when that fails, ``KernelChainExhausted``
 propagates.
 """
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 from repro_torch.core import guards
 from repro_torch.obs.metrics import metrics as _obs_metrics
 from repro_torch.obs.spans import active_tracer as _obs_tracer
+from repro_torch.testing.faults import active_injector as _active_injector
 
 from .merge import merge_path, merge_path_plain
 from .multi_merge import multi_merge_ranks, multi_merge_ranks_plain
@@ -301,17 +303,28 @@ class SeamPostconditionError(RuntimeError):
 
 
 # process-wide guard state: demotions are permanent for the process (a
-# backend that failed N times is not coming back)
+# backend that failed N times is not coming back), and the event
+# counter is what chaos runs compare against injected-fault counts
 _GUARD_LOCK = threading.Lock()
 _DEMOTED: Set[Tuple[str, str]] = set()
 _FAIL_COUNTS: Dict[Tuple[str, str], int] = {}
+_EVENTS_RECORDED = 0
+
+
+def events_recorded() -> int:
+    """Total DowngradeEvents recorded process-wide (chaos accounting:
+    must cover every injected seam fault, else the run was silent)."""
+    return _EVENTS_RECORDED
 
 
 def reset_guard_state() -> None:
-    """Test hook: forget demotions and failure tallies."""
+    """Test hook: forget demotions, failure tallies and the event
+    counter."""
+    global _EVENTS_RECORDED
     with _GUARD_LOCK:
         _DEMOTED.clear()
         _FAIL_COUNTS.clear()
+        _EVENTS_RECORDED = 0
 
 
 def _postcheck(seam: str, args, kwargs, out) -> None:
@@ -386,6 +399,8 @@ class GuardedKernels:
 
     Exposes the same five seam methods as the raw lowerings; each call
 
+    * calls the active fault injector's ``before_seam`` and
+      ``after_seam`` hooks around the lowering,
     * runs the seam postconditions (when ``REPRO_GUARDS`` != off),
       turning a *corrupted* output into a failure,
     * records every failure as a :class:`DowngradeEvent` -- drained by
@@ -416,10 +431,13 @@ class GuardedKernels:
         return out
 
     def _record(self, ev: DowngradeEvent) -> None:
+        global _EVENTS_RECORDED
         ev = replace(ev, ts_us=time.perf_counter() * 1e6,
                      einsum=ev.einsum or self.current_einsum)
         with self._lock:
             self._events.append(ev)
+        with _GUARD_LOCK:
+            _EVENTS_RECORDED += 1
         # rare-event telemetry: counters always, trace instant only
         # when a tracer is installed
         _obs_metrics().counter("kernel.downgrade/" + ev.action).inc()
@@ -445,7 +463,10 @@ class GuardedKernels:
         if key in _DEMOTED:
             raise KernelChainExhausted(
                 f"seam {seam!r} is demoted on backend {self.name!r}")
+        inj = _active_injector()
         try:
+            if inj is not None:
+                inj.before_seam(seam, self.name)
             if span is not None:
                 t0 = time.perf_counter()
             out = getattr(self.backend, seam)(*args, **kwargs)
@@ -454,6 +475,8 @@ class GuardedKernels:
                     f"kernel.seam_seconds/{seam}/{self.name}"
                 ).observe(time.perf_counter() - t0)
                 span.set("backend", self.name)
+            if inj is not None:
+                out = inj.after_seam(seam, self.name, out)
             if guards.enabled():
                 _postcheck(seam, args, kwargs, out)
             return out

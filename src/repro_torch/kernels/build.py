@@ -7,7 +7,9 @@ build takes seconds), and loaded with ``ctypes``.  The libraries go to
 their source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source or header is rebuilt and an unchanged one is reused.
 Nothing here runs at import time, and nothing catches a failed build: it
-raises with the compiler's output.
+raises with the compiler's output.  Builds and loads hold one module
+lock, so threads that reach an unbuilt kernel at once (a sweep's thread
+executor) build it once.
 
 No library links against the driver (``-lcuda``): ``flash_attention.cu``
 encodes its TMA tensor maps with ``cuTensorMapEncodeTiled``, which it
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -35,6 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: held by ``build`` and ``_load``: one thread compiles or loads at a time
+_LOCK = threading.RLock()
 #: nvcc's output (``-Xptxas -v`` register / shared-memory lines) of each
 #: library built by this process
 BUILD_LOGS: Dict[str, str] = {}
@@ -67,6 +72,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile every named library that is not built yet, all ``nvcc``
     processes at once; returns name -> library path."""
     names = tuple(SOURCES if names is None else names)
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> Dict[str, Path]:
     targets = {n: _target(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
     if todo:
@@ -96,9 +106,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 def _load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build([name])[name]))
+                lib.repro_error_string.argtypes = [ctypes.c_int]
+                lib.repro_error_string.restype = ctypes.c_char_p
+                _LIBS[name] = lib
     return lib
 
 

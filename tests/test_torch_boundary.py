@@ -83,6 +83,16 @@ logits = make_prefill_step(dense, device="cpu")(
     server.params, {"tokens": torch.zeros(1, 32, dtype=torch.long)})
 assert logits.shape == (1, 32, 512) and bool(torch.isfinite(logits).all())
 assert all(r.err <= r.limit for r in kernels_bench.run("cpu", reps=1))
+
+from repro_torch.dse import DesignSpace, SweepEngine
+from repro_torch.bench import dse_sweep
+inputs, shapes = dse_sweep.workload(m=24, k=24, n=24)
+space = DesignSpace("gamma", axes={"fibercache_mb": [0.002, 3.0]})
+swept = SweepEngine(inputs, shapes).sweep(space.grid())
+assert all(r.ok and r.fallback_reasons == {} for r in swept)
+vec = SweepEngine(inputs, shapes, backend="vector", device="cpu").sweep(
+    space.grid()[:1])
+assert vec[0].ok and vec[0].fallback_reasons == {} and vec[0].dram_bytes > 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -267,6 +277,26 @@ def test_chip_smoke_holds_each_launch_to_its_plain_version(chip_smoke,
             CudaKernels._merge(hay, probes)
 
 
+def test_chip_smoke_dse_phase_rehearses_on_cpu(chip_smoke):
+    """Phase dse at a tiny size: the analytic axes at full length, two
+    vector points equal to their ``simulate`` calls, and the engine's
+    threads, crash and resume, seam fault (on the CPU the interpreter
+    reruns the faulted Einsum) and process pool."""
+    out = chip_smoke.phase_dse("cpu", size=(48, 150),
+                               vector_caps=(0.002, 6.0),
+                               engine_size=(32, 100))
+    assert out["analytic"]["fibercache"]["points"] == 16
+    assert out["analytic"]["scale"]["points"] == 256
+    # the CPU takes the plain versions: no kernel launches
+    assert out["launches"] == {"search": 0, "merge_path": 0,
+                               "multi_merge_ranks": 0}
+    assert out["vector"]["points"] == 2
+    assert [r["label"] for r in out["ratios"]] == [
+        "gamma(fibercache_mb=0.002)", "gamma(fibercache_mb=6.0)"]
+    assert all(r[f] > 0 for r in out["ratios"]
+               for f in ("seconds", "energy_pj", "dram_bytes"))
+
+
 def test_chip_smoke_launch_sizes(chip_smoke):
     sizes = chip_smoke._launch_sizes(
         [(10, 5, True), (3, 0, True), (9, 7, False), (4, 1, True)],
@@ -397,7 +427,7 @@ def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
     assert build._target("k") not in (first, second)
 
 def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
-    """Phases 11-16 at small shapes and the smoke config: the CPU takes
+    """Phases 12-17 at small shapes and the smoke config: the CPU takes
     the plain versions, so no launches are counted."""
     import repro_torch.configs as C
     cfg = C.get_smoke("qwen2-7b")

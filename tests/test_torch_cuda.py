@@ -631,3 +631,37 @@ def test_graph_design_on_card_matches_plain(cuda_device, algo, design):
                  "isect_steps", "isect_matches", "advances", "merges"):
         assert getattr(ck, attr) == getattr(cp, attr), attr
     assert rk.report.seconds == rp.report.seconds
+
+
+def _dse_sweep(device, **kw):
+    from repro_torch.bench import dse_sweep
+    from repro_torch.dse import DesignSpace, SweepEngine
+    inputs, shapes = dse_sweep.workload(m=48, k=48, n=48)
+    pts = DesignSpace("gamma", axes={
+        "fibercache_mb": [0.002, 0.05, 1.0, 6.0]}).grid()
+    eng = SweepEngine(inputs, shapes, backend="vector", device=device, **kw)
+    return eng, [(r.label, r.seconds, r.energy_pj, r.dram_bytes,
+                  r.fallback_reasons, r.error) for r in eng.sweep(pts)]
+
+
+@pytest.mark.cuda
+def test_vector_sweep_on_card_matches_cpu(cuda_device):
+    """A vector-fidelity sweep on the card's kernels equals the same
+    sweep on the CPU's plain versions, point for point, natively."""
+    search.launches = 0
+    _, card = _dse_sweep(cuda_device)
+    assert search.launches > 0
+    _, cpu = _dse_sweep("cpu")
+    assert card == cpu
+    assert all(r[4] == {} and r[5] is None for r in card)
+
+
+@pytest.mark.cuda
+def test_vector_sweep_process_pool_spawns_on_card(cuda_device):
+    """The process executor of a card sweep spawns its workers (a forked
+    child of a process that has initialised CUDA cannot use it) and
+    equals the serial sweep."""
+    eng, pooled = _dse_sweep(cuda_device, executor="process", max_workers=2)
+    assert eng._start_method() == "spawn"
+    _, serial = _dse_sweep(cuda_device)
+    assert pooled == serial
