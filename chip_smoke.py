@@ -47,37 +47,46 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     2048^2 the thread executor, crash and resume, an
                     injected seam fault (recorded, the point fails, no
                     plain version runs) and the process executor;
-  8. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
+  8. throughput  -- the simulator's SpMSpM throughput
+                    (``backend_throughput.bench``): rowwise at 1024^2,
+                    4096^2 and 10000^2, flattened and partitioned at
+                    1024^2 and 4096^2, 1% dense, on the hand kernels
+                    (every launch held to its plain version) and on the
+                    plain versions: equal work and output digests; leaf
+                    multiplies/s, stage and seam seconds, launches; then
+                    the seams' keys/s at 2^20 keys on both lowerings,
+                    their outputs identical;
+  9. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
                     reference's test shapes, timed beside its bound
                     (TFLOP/s and share of it);
-  9. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
+ 10. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
                     batch 4 x 2048 tokens, with the kernel and with stage
                     (1) on the plain version: logits and greedy tokens
                     agree, one kernel launch per layer;
- 10. consistency -- in fp32 at full width, the last-position logits of a
+ 11. consistency -- in fp32 at full width, the last-position logits of a
                     512-token prefill against 512 ``serve_step`` decode
                     steps;
-11. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
+12. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
                     prompt tokens and 16 new tokens each;
-12. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
+13. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
                     at the Qwen2-7B prefill shape and the reference's test
                     shapes (fp32 and bf16, causal and not, a ragged KV
                     tail), timed beside its bound (TFLOP/s and share of
                     it) and SDPA;
-13. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
+14. bsmm_kernel  -- ``block_sparse_matmul`` against its plain version at
                     the reference's test shapes (all four dtype pairs) and
                     an 8192 x 8192 A at 30% tile density (fp32 and bf16),
                     there timed beside its route's bound and a dense
                     ``torch.matmul`` in the same dtype;
-14. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
+15. kernels_bench -- ``repro_torch.bench.kernels_bench.run``: every kernel
                     at the reference bench's shapes against its oracle (the
                     path that launches ``block_sparse_matmul``);
-15. dense_prefill -- phase 9 for Qwen2-7B at full width: one
+16. dense_prefill -- phase 10 for Qwen2-7B at full width: one
                     ``flash_attention`` launch per layer, and the same
                     prefill with ``mha`` on the plain version;
-16. dense_consistency -- phase 10 for Qwen2-7B, 256 tokens;
-17. dense_serve  -- phase 11 for Qwen2-7B.
+17. dense_consistency -- phase 11 for Qwen2-7B, 256 tokens;
+18. dense_serve  -- phase 12 for Qwen2-7B.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -114,7 +123,8 @@ from repro_torch.core.generator import check_against_dense  # noqa: E402
 from repro_torch.core.iteration import PythonBackend  # noqa: E402
 from repro_torch.core.trace import CollectingInstr  # noqa: E402
 from repro_torch.core.vectorized import VectorBackend  # noqa: E402
-from repro_torch.bench import dse_sweep, fig13_vcp, kernels_bench  # noqa: E402
+from repro_torch.bench import (backend_throughput, dse_sweep,  # noqa: E402
+                               fig13_vcp, kernels_bench)
 from repro_torch.dse import SweepEngine  # noqa: E402
 from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
                                  block_sparse_matmul,
@@ -162,6 +172,8 @@ DSE_SIZE = (8192, 100_000)
 DSE_VECTOR_CAPS = (0.002, 0.05, 1.0, 6.0)
 DSE_ENGINE_SIZE = (2048, 20_000)
 
+#: every kernel the script counts, in the result line's order
+ALL_KERNELS = KERNELS + MODEL_KERNELS + (block_sparse_matmul,)
 #: the kernels' entries in the result line
 KERNEL_INFO = {
     "search": ("src/repro_torch/kernels/csrc/search.cu",
@@ -1279,7 +1291,145 @@ def phase_dse(device, size=DSE_SIZE, vector_caps=DSE_VECTOR_CAPS,
 
 
 # ---------------------------------------------------------------------- #
-# 8-11: the Mamba2 model path
+# 8: the simulator's throughput and the seams' rates
+# ---------------------------------------------------------------------- #
+#: the seam operands' keys (the reference's ``seam_rates`` default)
+SEAM_KEYS = 1 << 20
+#: work keys a kernel record must share with its plain record; the
+#: digest stands for the output CSF's arrays
+SAME_WORK = ("elements", "out_nnz", "nnz_a", "nnz_b", "out_sha256")
+
+
+def _same_outputs(got, want) -> bool:
+    """Seam outputs equal: arrays (dtype, shape, values) and the tuples
+    and lists that hold them, element by element."""
+    if isinstance(got, (tuple, list)):
+        return isinstance(want, (tuple, list)) and len(got) == len(want) \
+            and all(_same_outputs(g, w) for g, w in zip(got, want))
+    got, want = np.asarray(got), np.asarray(want)
+    return got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def phase_throughput(device, sizes=backend_throughput.SIZES,
+                     mapped_sizes=backend_throughput.MAPPED_SIZES,
+                     seam_keys: int = SEAM_KEYS, card: str = "") -> Dict:
+    """The simulator's SpMSpM throughput (``backend_throughput.bench``,
+    one run a record, traced) on ``device``: rowwise at ``sizes``,
+    flattened and partitioned at ``mapped_sizes``, 1% dense, on the
+    device's own lowering (every ``search`` and merge launch held to its
+    plain version on its own tensors, the checks' seconds taken out of
+    each run) and on the plain versions on the same device: equal work
+    keys and output digests; the interpreter at the smallest size.  Then
+    ``kernels_bench.seam_rates`` of every lowering the device runs at
+    ``seam_keys`` keys, each seam's outputs equal between them.  Returns
+    the launches of every kernel in those runs (not in the checks), the
+    records, their summary and the seam rates; ``card`` names the device
+    beside every rate."""
+    device = torch.device(device)
+    where = card or device
+    held: Dict[str, float] = {"seconds": 0.0}
+    measure = backend_throughput._measure_vector
+
+    def held_measure(*args, **kwargs):
+        # the checks run inside the seam calls of the timed run
+        before = dict(held)
+        rec = measure(*args, **kwargs)
+        check = held["seconds"] - before["seconds"]
+        rec["seconds"] -= check
+        rec["check_seconds"] = check
+        rec["held"] = {k.__name__: int(held.get(k.__name__, 0)
+                                       - before.get(k.__name__, 0))
+                       for k in KERNELS}
+        return rec
+
+    t0 = time.perf_counter()
+    backend_throughput._measure_vector = held_measure
+    try:
+        with record_search_calls([], held), record_merge_calls([], held):
+            kern = backend_throughput.bench(
+                sizes=list(sizes), backend="both", py_max_size=sizes[0],
+                mapped_sizes=list(mapped_sizes), device=device, reps=1,
+                trace=True)
+    finally:
+        backend_throughput._measure_vector = measure
+    plain = backend_throughput.bench(
+        sizes=list(sizes), backend="vector", mapped_sizes=list(mapped_sizes),
+        device=device, reps=1, kernel_backend=TorchKernels(device),
+        trace=True)
+    launches = {k.__name__: 0 for k in ALL_KERNELS}
+    by_key = {(r["workload"], r["size"]): r for r in plain}
+    for r in kern:
+        if r["backend"] != "vector":
+            log(f"throughput {r['workload']} {r['size']}^2 interpreter on the "
+                f"host of {where}: {r['seconds']:.3f} s, "
+                f"{r['elements_per_sec']:.1f} multiplies/s, {r['elements']} "
+                f"multiplies")
+            continue
+        p = by_key[(r["workload"], r["size"])]
+        diff = [k for k in SAME_WORK if r[k] != p[k]]
+        if diff or r["lowering"] != kbk.kernels_for(device).name or \
+                p["lowering"] != "torch":
+            raise AssertionError(f"throughput {r['workload']} {r['size']}: "
+                                 f"kernels and plain versions differ in "
+                                 f"{diff} ({r['lowering']}, "
+                                 f"{p['lowering']})")
+        if r["held"] != r["launches"]:
+            raise AssertionError(f"throughput {r['workload']} {r['size']}: "
+                                 f"held {r['held']} launches, counted "
+                                 f"{r['launches']}")
+        for k, c in r["launches"].items():
+            launches[k] += c
+        seams = sum(r["seam_seconds"].values()) - r["check_seconds"]
+        log(f"throughput {r['workload']} {r['size']}^2 on {where}: kernels "
+            f"{r['seconds']:.3f} s (without {r['check_seconds']:.3f} s of "
+            f"per-launch checks), {r['elements_per_sec']:.1f} multiplies/s; "
+            f"plain {p['seconds']:.3f} s, {p['elements_per_sec']:.1f} "
+            f"multiplies/s; {r['elements']} multiplies, {r['out_nnz']} "
+            f"output nonzeros, identical; seam calls {seams:.3f} s "
+            f"({seams / r['seconds']:.2%}); launches {r['launches']}, each "
+            f"equal to its plain version")
+    big = max((r for r in kern if r["backend"] == "vector"
+               and r["workload"] == "rowwise"), key=lambda r: r["size"])
+    log(f"  stages at rowwise {big['size']}^2 (s, kernel run, traced): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in big["stage_seconds"].items())
+        + f"; outside the stages "
+          f"{big['seconds'] - sum(big['stage_seconds'].values()):.3f}")
+    summary = backend_throughput.summarize(kern)
+    log(f"throughput summary on {where}: " + ", ".join(
+        f"{k} {v}" for k, v in summary.items()
+        if k not in ("records", "mappings", "metric", "workload")))
+    # the seams' own rates: counted launches, then the comparison
+    for k in ALL_KERNELS:
+        k.launches = 0
+    lows = kernels_bench.lowerings(device)
+    rates = {name: kernels_bench.seam_rates(name, device, seam_keys)
+             for name in lows}
+    for k in ALL_KERNELS:
+        launches[k.__name__] += k.launches
+    seam_launches = {k.__name__: k.launches for k in KERNELS}
+    outs = {name: kernels_bench.seam_outputs(name, device, seam_keys)
+            for name in lows}
+    for name in lows[1:]:
+        bad = [seam for seam in outs[name]
+               if not _same_outputs(outs[name][seam], outs[lows[0]][seam])]
+        if bad:
+            raise AssertionError(f"seams {bad}: {name} differs from "
+                                 f"{lows[0]}")
+    for name, r in rates.items():
+        log(f"seam rates at {seam_keys} keys, {name} on {where} (keys/s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in r.items()))
+    log(f"  seam outputs identical across {list(lows)}; launches "
+        f"{seam_launches}")
+    if device.type == "cuda" and not launches["search"]:
+        raise AssertionError(f"throughput path launched {launches}")
+    log(f"throughput phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    return {"launches": launches, "records": kern, "plain": plain,
+            "summary": summary, "seam_rates": rates}
+
+
+# ---------------------------------------------------------------------- #
+# 9-12: the Mamba2 model path
 # ---------------------------------------------------------------------- #
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -1545,7 +1695,7 @@ def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
 
 
 # ---------------------------------------------------------------------- #
-# 12-14: flash attention, block-sparse matmul, the kernel bench
+# 13-15: flash attention, block-sparse matmul, the kernel bench
 # ---------------------------------------------------------------------- #
 def attn_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
     """(b, h, hkv, sq, sk, d) of the ``flash_attention`` call of one
@@ -1755,11 +1905,10 @@ def phase_kernels_bench(device) -> Dict[str, int]:
     """``kernels_bench.run`` as its CLI runs it, every kernel's count set
     to 0 just before: each row within its oracle limit.  Returns the
     launches of every kernel in that run."""
-    kernels = KERNELS + MODEL_KERNELS + (block_sparse_matmul,)
-    for k in kernels:
+    for k in ALL_KERNELS:
         k.launches = 0
     rows = kernels_bench.run(device)
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k.__name__: k.launches for k in ALL_KERNELS}
     for r in rows:
         log(f"kernels_bench {r.name},{r.us_per_call:.1f},{r.err:.3g} "
             f"(limit {r.limit:.3g})")
@@ -1802,6 +1951,7 @@ def main() -> int:
         n = dse["launches"][rec["name"]]
         rec["launches_by_path"]["dse"] = n
         rec["launches"] += n
+    throughput = phase_throughput("cuda", card=smi)["launches"]
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
     ssd_rec = phase_ssd_kernel("cuda", card=smi)
@@ -1823,6 +1973,14 @@ def main() -> int:
     phase_consistency("cuda", dense, seq=DENSE_CONSISTENCY_SEQ, card=smi)
     torch.cuda.empty_cache()
     phase_serve("cuda", dense, card=smi)
+    model_paths = {"ssd_chunk": "prefill", "flash_attention": "dense_prefill",
+                   "block_sparse_matmul": "kernels_bench"}
+    for rec in kernels:
+        rec.setdefault("launches_by_path",
+                       {model_paths.get(rec["name"]): rec["launches"]})
+        n = throughput[rec["name"]]
+        rec["launches_by_path"]["throughput"] = n
+        rec["launches"] += n
     for rec in kernels:
         if rec["launches"] <= 0:
             raise AssertionError(f"{rec['name']} never launched on its "

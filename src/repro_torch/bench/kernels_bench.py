@@ -4,33 +4,53 @@ oracle, on the CUDA device unless ``--device`` names another.
 
     python -m repro_torch.bench.kernels_bench [--device cpu]
 
+    python -m repro_torch.bench.kernels_bench --seam-rates [--n N]
+                                              [--record] [--device cpu]
+
 Rows print as ``name,us_per_call,err``, the reference's format; a name
 ends in the route that ran (``cuda`` for the hand kernels, ``plain`` for
 their plain versions on the CPU).  ``err`` is the largest absolute
 difference from the oracle, also on the SpMSpM co-iteration row (the
 reference prints a multiply rate there).  Each row carries the limit
-it is held to; ``main`` exits non-zero when a row exceeds it.  The
-reference's ``seam_rates`` and ``--record`` wait for the seam bench.
+it is held to; ``main`` exits non-zero when a row exceeds it.
+
+``seam_rates`` measures the four dispatch seams of the vector engine
+(``intersect`` and ``lookup`` on ``search``, ``union_k`` with k = 3 on
+``multi_merge_ranks`` plus ``search``, and ``segmented_reduce``, host
+numpy in every lowering) in keys per second, on the reference's inputs
+(``_seam_inputs``).  The lowerings are the port's: ``cuda``
+(``CudaKernels``, the hand kernels) and ``torch`` (``TorchKernels``, the
+plain versions) on the device named, ``torch`` alone on the CPU.
+``--seam-rates`` prints them as JSON instead of the rows; ``--record``
+(which implies it) writes them under the ``kernel_rates`` key of
+``BENCH_torch.json`` with the card's name, from a card run only.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import sys
 import time
-from typing import Callable, List, NamedTuple
+from pathlib import Path
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.accelerators.zoo import rowwise_spmspm
+from repro_torch.core.einsum import Semiring
 from repro_torch.core.generator import CascadeSimulator
 from repro_torch.core.vectorized import VectorBackend
 from repro_torch.kernels import (block_sparse_matmul, compact_tiles,
                                  flash_attention, ssd_chunk, ssd_chunk_plain)
-from repro_torch.kernels.backends import kernels_for, resolve_device
+from repro_torch.kernels.backends import (CudaKernels, TorchKernels,
+                                          kernels_for, resolve_device)
 from repro_torch.kernels.ref import attention_ref, block_sparse_matmul_ref
 
+ROOT = Path(__file__).resolve().parents[3]
+#: the port's record, written from card runs only
+BENCH_JSON = ROOT / "BENCH_torch.json"
 #: flash attention in fp32: the kernel and the oracle differ by the order
 #: of their fp32 sums (the reference's own test holds it to 2e-6)
 FLASH_ATOL = 2e-5
@@ -154,12 +174,116 @@ def run(device=None, reps: int = 3) -> List[Row]:
     return rows
 
 
+# ---------------------------------------------------------------------- #
+# dispatch-seam rates
+# ---------------------------------------------------------------------- #
+def _seam_inputs(n: int, seed: int = 7):
+    rng = np.random.default_rng(seed)
+    dom = 8 * n
+    a = np.sort(rng.choice(dom, size=n, replace=False)).astype(np.int64)
+    b = np.sort(rng.choice(dom, size=n, replace=False)).astype(np.int64)
+    c = np.sort(rng.choice(dom, size=n // 2, replace=False)).astype(
+        np.int64)
+    probes = rng.integers(0, dom, size=n).astype(np.int64)
+    vals = rng.random(n) + 0.1
+    gids = np.sort(rng.integers(0, max(n // 8, 1), size=n)).astype(
+        np.int64)
+    gids = np.cumsum(np.diff(gids, prepend=gids[0:1]) > 0).astype(np.int64)
+    starts = np.flatnonzero(np.diff(gids, prepend=-1) > 0)
+    return a, b, c, probes, vals, starts, gids
+
+
+def lowerings(device) -> Tuple[str, ...]:
+    """The seam lowerings ``device`` runs: the hand kernels and their
+    plain versions on a card, the plain versions elsewhere."""
+    return ("cuda", "torch") if resolve_device(device).type == "cuda" \
+        else ("torch",)
+
+
+def _seams(lowering: str, device, n: int
+           ) -> Dict[str, Tuple[Callable[[], object], int]]:
+    """Each seam as (one call on ``_seam_inputs(n)``, keys it takes)."""
+    device = resolve_device(device)
+    kb = {"cuda": CudaKernels, "torch": TorchKernels}[lowering](device)
+    a, b, c, probes, vals, starts, gids = _seam_inputs(n)
+    sr = Semiring.arithmetic()
+    return {
+        "intersect": (lambda: kb.intersect_keys(a, b), n),
+        "union_k": (lambda: kb.union_k_keys([a, b, c]), n * 5 // 2),
+        "lookup": (lambda: kb.lookup_keys(a, probes), n),
+        "segmented_reduce": (
+            lambda: kb.segmented_reduce(vals, starts, sr, group_ids=gids),
+            n),
+    }
+
+
+def seam_outputs(lowering: str, device=None, n: int = 1 << 20
+                 ) -> Dict[str, object]:
+    """One call of each seam in ``lowering`` on ``_seam_inputs(n)``: its
+    outputs, as numpy arrays."""
+    return {name: fn() for name, (fn, _) in _seams(lowering, device,
+                                                   n).items()}
+
+
+def seam_rates(lowering: str = "cuda", device=None, n: int = 1 << 20,
+               reps: int = 3) -> Dict[str, float]:
+    """Keys per second through each dispatch seam (best of ``reps``
+    after one warm call), on sorted unique key arrays of ``n``
+    elements; every call returns to the host, so the clock sees the
+    device's work."""
+    out: Dict[str, float] = {}
+    for name, (fn, keys) in _seams(lowering, device, n).items():
+        fn()                             # warm (kernel build, allocator)
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        out[name] = round(keys / best, 1)
+    return out
+
+
+def record(summary: Dict, device, path: Path = BENCH_JSON) -> None:
+    """Write ``summary`` under the ``kernel_rates`` key of ``path``,
+    keeping its other keys; card runs only."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{path.name} records card runs only, not a run "
+                         f"on {device}")
+    data = json.loads(path.read_text()) if path.exists() else {}
+    data["kernel_rates"] = dict(summary, device=str(device),
+                                card=torch.cuda.get_device_name(device))
+    path.write_text(json.dumps(data, indent=2) + "\n")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--seam-rates", action="store_true",
+                    help="print the seams' keys per second as JSON "
+                    "instead of the kernel rows")
+    ap.add_argument("--record", action="store_true",
+                    help="measure the seam rates and write them under "
+                    "the kernel_rates key of BENCH_torch.json (card "
+                    "runs only)")
+    ap.add_argument("--n", type=int, default=1 << 20,
+                    help="keys per seam operand")
     args = ap.parse_args()
-    rows = run(args.device)
+    device = resolve_device(args.device)
+    if args.seam_rates or args.record:
+        if args.record and device.type != "cuda":
+            ap.error(f"--record writes {BENCH_JSON.name} from a card run "
+                     f"only")
+        summary = {"metric": "keys per second", "n_keys": args.n,
+                   "backends": {name: seam_rates(name, device, args.n)
+                                for name in lowerings(device)}}
+        print(json.dumps(summary, indent=2))
+        if args.record:
+            record(summary, device)
+            print(f"wrote {BENCH_JSON}")
+        return 0
+    rows = run(device)
     print("name,us_per_call,err")
     for r in rows:
         print(f"{r.name},{r.us_per_call:.1f},{r.err:.3g}")

@@ -93,6 +93,13 @@ assert all(r.ok and r.fallback_reasons == {} for r in swept)
 vec = SweepEngine(inputs, shapes, backend="vector", device="cpu").sweep(
     space.grid()[:1])
 assert vec[0].ok and vec[0].fallback_reasons == {} and vec[0].dram_bytes > 0
+
+from repro_torch.bench import (backend_throughput, compare, fig10_performance,
+                               fig11_energy, fig9_memory_traffic, run,
+                               table1_designs)
+recs = backend_throughput.bench(sizes=[64], backend="both",
+                                mapped_sizes=[64], device="cpu", reps=1)
+assert len(recs) == 4 and all(r["elements"] > 0 for r in recs)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -297,6 +304,36 @@ def test_chip_smoke_dse_phase_rehearses_on_cpu(chip_smoke):
                for f in ("seconds", "energy_pj", "dram_bytes"))
 
 
+def test_chip_smoke_throughput_phase_rehearses_on_cpu(chip_smoke):
+    """Phase throughput at 256^2 and 2^12 seam keys: every mapping on
+    the device's lowering and on the plain versions (the same on the
+    CPU), equal work and digests, the interpreter at the smallest size,
+    the seam rates of the one lowering the CPU runs."""
+    out = chip_smoke.phase_throughput("cpu", sizes=[256], mapped_sizes=[256],
+                                      seam_keys=1 << 12)
+    assert out["launches"] == {k.__name__: 0 for k in chip_smoke.ALL_KERNELS}
+    assert [(r["workload"], r["backend"]) for r in out["records"]] == [
+        ("rowwise", "vector"), ("rowwise", "python"),
+        ("flattened", "vector"), ("partitioned", "vector")]
+    for r in out["records"]:
+        if r["backend"] == "vector":
+            assert r["check_seconds"] == 0.0 and r["stage_seconds"]
+            assert r["held"] == r["launches"]
+    assert [r["out_sha256"] for r in out["plain"]] == [
+        r["out_sha256"] for r in out["records"] if r["backend"] == "vector"]
+    assert out["summary"]["speedup_same_size"] > 0
+    assert set(out["seam_rates"]) == {"torch"}
+    assert len(out["seam_rates"]["torch"]) == 4
+
+
+def test_chip_smoke_seam_output_comparison(chip_smoke):
+    a = np.arange(5, dtype=np.int64)
+    assert chip_smoke._same_outputs((a, [a, a]), (a.copy(), [a, a]))
+    assert not chip_smoke._same_outputs((a, [a, a]), (a, [a, a + 1]))
+    assert not chip_smoke._same_outputs(a, a.astype(np.int32))
+    assert not chip_smoke._same_outputs((a, [a]), (a, [a, a]))
+
+
 def test_chip_smoke_launch_sizes(chip_smoke):
     sizes = chip_smoke._launch_sizes(
         [(10, 5, True), (3, 0, True), (9, 7, False), (4, 1, True)],
@@ -308,7 +345,7 @@ def test_chip_smoke_launch_sizes(chip_smoke):
 
 
 def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):
-    """Phases 7-10 at the smoke config: the CPU takes the plain version
+    """Phases 9-12 at the smoke config: the CPU takes the plain version
     of ``ssd_chunk``, so no launches are counted."""
     import repro_torch.configs as C
     # the first large multithreaded torch.exp of a process can come back
@@ -427,7 +464,7 @@ def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
     assert build._target("k") not in (first, second)
 
 def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
-    """Phases 12-17 at small shapes and the smoke config: the CPU takes
+    """Phases 13-18 at small shapes and the smoke config: the CPU takes
     the plain versions, so no launches are counted."""
     import repro_torch.configs as C
     cfg = C.get_smoke("qwen2-7b")

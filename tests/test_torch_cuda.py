@@ -665,3 +665,43 @@ def test_vector_sweep_process_pool_spawns_on_card(cuda_device):
     assert eng._start_method() == "spawn"
     _, serial = _dse_sweep(cuda_device)
     assert pooled == serial
+
+
+@pytest.mark.cuda
+def test_throughput_rowwise_on_card_matches_plain(cuda_device):
+    """The throughput bench's rowwise SpMSpM at 1,024^2 (1%) on the hand
+    kernels does the plain versions' work and builds their output, bit
+    for bit (equal digests), launching ``search``."""
+    from repro_torch.bench import backend_throughput as bt
+    from repro_torch.kernels.backends import TorchKernels
+    kern = bt.bench(sizes=[1024], backend="vector", mapped_sizes=[],
+                    device=cuda_device, reps=1)
+    plain = bt.bench(sizes=[1024], backend="vector", mapped_sizes=[],
+                     device=cuda_device, reps=1,
+                     kernel_backend=TorchKernels(cuda_device))
+    assert kern[0]["lowering"] == "cuda" and plain[0]["lowering"] == "torch"
+    assert kern[0]["launches"]["search"] > 0
+    for key in ("elements", "out_nnz", "nnz_a", "nnz_b", "out_sha256"):
+        assert kern[0][key] == plain[0][key], key
+    # the reference's CPU record of the same workload
+    assert (kern[0]["elements"], kern[0]["out_nnz"]) == (107485, 102174)
+
+
+def _same(got, want):
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(map(_same, got, want))
+    return got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_seam_outputs_cuda_match_torch_on_card(cuda_device):
+    """Every seam of the ``cuda`` lowering returns the ``torch``
+    lowering's arrays on the seam bench's inputs."""
+    from repro_torch.bench import kernels_bench
+    n = 1 << 16
+    cuda = kernels_bench.seam_outputs("cuda", cuda_device, n)
+    plain = kernels_bench.seam_outputs("torch", cuda_device, n)
+    assert set(cuda) == {"intersect", "union_k", "lookup",
+                         "segmented_reduce"}
+    for seam in cuda:
+        assert _same(cuda[seam], plain[seam]), seam
