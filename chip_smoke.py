@@ -86,7 +86,43 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     ``flash_attention`` launch per layer, and the same
                     prefill with ``mha`` on the plain version;
 17. dense_consistency -- phase 11 for Qwen2-7B, 256 tokens;
-18. dense_serve  -- phase 12 for Qwen2-7B.
+18. dense_serve  -- phase 12 for Qwen2-7B;
+19. family_kernels -- ``flash_attention`` against its plain version at
+                    Whisper-small's four attention shapes (encoder 1500^2
+                    and cross 448 x 1500 non-causal, decoder 448^2 causal,
+                    one decode query over 1500 frames) and at one layer's
+                    prefill of Qwen2-MoE-A2.7B and of the reduced Jamba
+                    (causal, 4 x 2048; fp32 and bf16), the encoder's timed
+                    beside its bound, the plain version and SDPA; then
+                    ``ssd_chunk`` against its plain version at the reduced
+                    Jamba's prefill shape, timed beside its bound;
+20. moe_prefill  -- phase 10 for Qwen2-MoE-A2.7B at full width (24
+                    ``flash_attention`` launches), the logits held to a
+                    plain run that replays the kernel run's expert routes
+                    (``MOE_PREFILL_*``); the share of dropped assignments
+                    printed; then the limits' evidence: the same held at
+                    two more seeds, and with each of two faults planted
+                    in ``flash_attention`` (``PREFILL_FAULTS``) the limits
+                    or the kernel's own hold at that shape must fail;
+21. moe_consistency -- phase 11 for Qwen2-MoE at 4 layers and capacity
+                    factor 60 (nothing drops in prefill or decode), 256
+                    tokens;
+22. moe_serve    -- phase 12 for Qwen2-MoE;
+23. moe_dispatch -- one layer's ``moe_ffn`` on the card against the same
+                    function on the CPU: routes equal, output within bf16
+                    rounding;
+24. encdec_prefill -- phase 10 for Whisper-small at full width, 4 x 448
+                    decoder tokens over 1,500 seeded frames (36
+                    ``flash_attention`` launches);
+25. encdec_consistency -- phase 11 for Whisper-small (cross cache primed
+                    from the frames), 128 tokens;
+26. encdec_serve -- phase 12 for Whisper-small, its cross cache primed;
+27. hybrid_prefill -- phase 10 for Jamba-1.5-Large at one superblock and
+                    half width (``hybrid_config``): 1 ``flash_attention``
+                    and 7 ``ssd_chunk`` launches;
+28. hybrid_consistency -- phase 11 for that Jamba at capacity factor 60,
+                    256 tokens;
+29. hybrid_serve -- phase 12 for that Jamba.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -141,7 +177,9 @@ from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.obs.spans import trace_session  # noqa: E402
@@ -255,6 +293,59 @@ BSMM_RTOL = 1e-4
 #: PERF.md); a wrong attention moves logits by their own size.
 DENSE_PREFILL_MAX_ABS, DENSE_PREFILL_MEAN_ABS, DENSE_PREFILL_GREEDY_SHARE = \
     0.25, 0.032, 0.91
+
+#: bf16 Qwen2-MoE prefill, kernel vs plain attention with the kernel
+#: run's expert routes replayed in the plain run (``phase_prefill``): the
+#: same bf16 roundings as the dense model's, carried through 24 layers of
+#: MoE FFNs.  The limits are twice what the kernel showed in its first
+#: full-width run on an H100 (max 0.2617, mean 0.02994 on logits up to
+#: 5.4, 9.84% of greedy tokens different; PERF.md), by the rule of the
+#: limits above; the dense limits do not hold here.  Phase
+#: moe_prefill_faults holds two more seeds within them and shows that a
+#: flash that drops the last key tile, or rounds its output to float8,
+#: fails them (``PREFILL_FAULTS``; the readings are in PERF.md).
+MOE_PREFILL_MAX_ABS, MOE_PREFILL_MEAN_ABS, MOE_PREFILL_GREEDY_SHARE = \
+    0.52, 0.06, 0.80
+
+#: the MoE, encoder-decoder and hybrid model paths: Qwen2-MoE-A2.7B and
+#: Whisper-small at their published widths, Jamba-1.5-Large reduced
+#: (``hybrid_config``)
+MOE_ARCH, ENCDEC_ARCH, HYBRID_ARCH = ("qwen2-moe-a2.7b", "whisper-small",
+                                      "jamba-1.5-large-398b")
+#: Whisper's decoder length: 448 tokens over its 1,500 frames
+ENCDEC_PREFILL_SEQ = 448
+#: the consistency phases' capacity factor.  With the configs' 1.25 a
+#: 256-token prefill has one slot a group per expert (Qwen2-MoE) and
+#: drops assignments that batch-1 decode keeps, so the two compute
+#: different functions by design; at 60 the prefill has 64 slots a group
+#: (Qwen2-MoE; 128 for Jamba) and decode 4 (7), and nothing drops.
+CONSISTENCY_CAPACITY = 60.0
+#: Qwen2-MoE's consistency phase: layers kept (fp32 at full width) and
+#: tokens
+MOE_CONSISTENCY_LAYERS, MOE_CONSISTENCY_SEQ = 4, 256
+ENCDEC_CONSISTENCY_SEQ = 128
+HYBRID_CONSISTENCY_SEQ = 256
+#: moe_dispatch: (batch, tokens) of the layer input, small enough for the
+#: CPU run it is held to (16 groups of 64 tokens, 5 slots an expert)
+MOE_DISPATCH_SHAPE = (4, 256)
+#: moe_dispatch, card vs CPU output in bf16: the same products rounded to
+#: bf16 at the same places, summed in another order (BF16_ATOL of the CPU
+#: tests, on outputs of magnitude about 1)
+MOE_DISPATCH_ATOL = 6e-2
+#: Whisper-small's attention calls, ((b, h, hkv, sq, sk, d), causal):
+#: the encoder (timed), the decoder's self- and cross-attention in a
+#: 4 x 448 prefill, and decode's cross-attention of one query
+WHISPER_ATTN = (((4, 12, 12, 1500, 1500, 64), False),
+                ((4, 12, 12, 448, 448, 64), True),
+                ((4, 12, 12, 448, 1500, 64), False),
+                ((4, 12, 12, 1, 1500, 64), False))
+#: the reduction of ``jamba-1.5-large-398b`` that runs on one card
+HYBRID_REDUCTION = ("n_layers 72 -> 8 (one superblock: 1 attention, 7 "
+                    "Mamba, MoE at odd positions), d_model 8192 -> 4096, "
+                    "n_heads 64 -> 32, d_ff and d_expert 24576 -> 12288; "
+                    "unchanged: 8 KV heads of 128, 16 experts top-2, "
+                    "vocab 65536, the SSM (d_state 128, head dim 64, "
+                    "chunk 256, expand 2)")
 
 
 def log(*args) -> None:
@@ -1436,30 +1527,94 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-#: per family, the kernel a prefill launches once per layer: the model
-#: module that calls it, the kernel's name there, its plain version, and
-#: the limits (max abs, mean abs, greedy-token share) that hold the
-#: kernel's bf16 logits to the plain version's
-PREFILL_KERNELS = {
-    "ssm": (ssm_mod, "ssd_chunk", ssd_chunk_plain,
-            (PREFILL_MAX_ABS, PREFILL_MEAN_ABS, PREFILL_GREEDY_SHARE)),
-    "dense": (layers_mod, "flash_attention", flash_attention_plain,
-              (DENSE_PREFILL_MAX_ABS, DENSE_PREFILL_MEAN_ABS,
-               DENSE_PREFILL_GREEDY_SHARE)),
+#: the model kernels a prefill launches: the module that calls each, and
+#: its plain version
+PREFILL_KERNELS = {"ssd_chunk": (ssm_mod, ssd_chunk_plain),
+                   "flash_attention": (layers_mod, flash_attention_plain)}
+#: per family, the limits (max abs, mean abs, greedy-token share) that hold
+#: the kernels' bf16 logits to the plain versions'.  Whisper takes the
+#: dense family's (one attention kernel, 36 launches deep); the hybrid
+#: takes Mamba2's (both kernels swapped at once).
+PREFILL_LIMITS = {
+    "ssm": (PREFILL_MAX_ABS, PREFILL_MEAN_ABS, PREFILL_GREEDY_SHARE),
+    **{f: (DENSE_PREFILL_MAX_ABS, DENSE_PREFILL_MEAN_ABS,
+           DENSE_PREFILL_GREEDY_SHARE) for f in ("dense", "encdec")},
+    "moe": (MOE_PREFILL_MAX_ABS, MOE_PREFILL_MEAN_ABS,
+            MOE_PREFILL_GREEDY_SHARE),
+    "hybrid": (PREFILL_MAX_ABS, PREFILL_MEAN_ABS, PREFILL_GREEDY_SHARE),
 }
 
 
+def prefill_launches(cfg) -> Dict[str, int]:
+    """Per kernel, its launches in one prefill of ``cfg`` on the card:
+    one ``ssd_chunk`` per Mamba layer, one ``flash_attention`` per
+    attention (Whisper: each encoder layer, each decoder layer's self-
+    and cross-attention)."""
+    if cfg.family == "ssm":
+        return {"ssd_chunk": cfg.n_layers}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.enc_layers + 2 * cfg.n_layers}
+    if cfg.family == "hybrid":
+        n = cfg.n_layers // cfg.hybrid_block
+        return {"flash_attention": n,
+                "ssd_chunk": n * (cfg.hybrid_block - 1)}
+    return {"flash_attention": cfg.n_layers}
+
+
 @contextlib.contextmanager
-def plain_kernel(family: str):
-    """The family's prefill kernel replaced by its plain version for the
-    duration (the run the kernel's prefill is held to)."""
-    module, name, plain, _ = PREFILL_KERNELS[family]
-    kernel = getattr(module, name)
-    setattr(module, name, plain)
+def plain_kernel(cfg):
+    """``cfg``'s prefill kernels replaced by their plain versions for the
+    duration (the run the kernels' prefill is held to)."""
+    saved = {n: getattr(PREFILL_KERNELS[n][0], n)
+             for n in prefill_launches(cfg)}
+    for n in saved:
+        setattr(PREFILL_KERNELS[n][0], n, PREFILL_KERNELS[n][1])
     try:
         yield
     finally:
-        setattr(module, name, kernel)
+        for n, kernel in saved.items():
+            setattr(PREFILL_KERNELS[n][0], n, kernel)
+
+
+@contextlib.contextmanager
+def record_routes(routes: List[Tuple[torch.Tensor, ...]]):
+    """Every ``moe.route`` call's (eid, slot, keep, gate), appended to
+    ``routes`` for the duration."""
+    route = moe_mod.route
+
+    def recording(logits, top_k, capacity):
+        out = route(logits, top_k, capacity)
+        routes.append(out)
+        return out
+    moe_mod.route = recording
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+
+
+@contextlib.contextmanager
+def replay_routes(routes: List[Tuple[torch.Tensor, ...]]):
+    """``moe.route`` answering with ``routes`` in order for the duration
+    (the plain run taking the kernel run's routing decisions); every
+    route must be used."""
+    route, it = moe_mod.route, iter(routes)
+    moe_mod.route = lambda logits, top_k, capacity: next(it)
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+    if next(it, None) is not None:
+        raise AssertionError("replay_routes: routes left over")
+
+
+def dropped_share(routes) -> Optional[float]:
+    """The share of expert assignments past capacity over ``routes``
+    (None without MoE layers)."""
+    if not routes:
+        return None
+    kept = sum(float(r[2].sum()) for r in routes)
+    return 1.0 - kept / sum(r[2].numel() for r in routes)
 
 
 def ssd_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
@@ -1568,41 +1723,58 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
 
 
 def phase_prefill(device, cfg, batch: int, seq: int, seed: int = 0,
-                  card: str = "") -> Dict:
-    """``make_prefill_step`` on ``cfg`` with seeded weights: once with
-    the family's kernel (``PREFILL_KERNELS``; every model kernel's count
-    set to 0 just before) and once with that kernel on its plain
-    version, each after one warm-up.
-    Kernel and plain logits finite, within the stated tolerance of each
-    other, the same greedy token at most positions; one kernel launch
-    per layer on a CUDA device."""
+                  card: str = "", hold: bool = True) -> Dict:
+    """``make_prefill_step`` on ``cfg`` with seeded weights (and, for
+    Whisper, seeded frames): once with the family's kernels
+    (``prefill_launches``; every model kernel's count set to 0 just
+    before) and once with those kernels on their plain versions, each
+    after one warm-up.  Kernel and plain logits finite, within the
+    family's limits (``PREFILL_LIMITS``) of each other, the same greedy
+    token at most positions; each kernel launched as often as
+    ``prefill_launches`` says on a CUDA device.  With ``hold`` false a
+    limit passed is reported in ``fails`` and not raised (the readings of
+    ``phase_prefill_faults``).
+
+    MoE routing is discontinuous: a bf16 difference that reorders two
+    router probabilities sends a token to another expert and shifts the
+    slots behind it, so two runs that route for themselves part by whole
+    expert outputs.  The plain run therefore replays the kernel run's
+    routes, so that only the kernels differ; its time leaves out the
+    routes' own sort (a few small launches a layer)."""
     device = torch.device(device)
-    module, name, _, limits = PREFILL_KERNELS[cfg.family]
+    want = prefill_launches(cfg)
     params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
     data = api.make_batch(cfg, torch.Generator(device).manual_seed(seed + 1),
                           batch, seq)
     step = make_prefill_step(cfg, device)
     step(params, data)                                  # warm-up
     _sync(device)
+    routes: List[Tuple[torch.Tensor, ...]] = []
     for k in MODEL_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    logits = step(params, data)
+    with record_routes(routes):
+        logits = step(params, data)
     _sync(device)
     kernel_s = time.perf_counter() - t0
-    launches = {name: getattr(module, name).launches}
-    with plain_kernel(cfg.family):
-        step(params, data)                              # warm-up
+    launches = {k.__name__: k.launches for k in MODEL_KERNELS
+                if k.__name__ in want}
+    with plain_kernel(cfg):
+        with replay_routes(routes):
+            step(params, data)                          # warm-up
         _sync(device)
         t0 = time.perf_counter()
-        plain = step(params, data)
+        with replay_routes(routes):
+            plain = step(params, data)
         _sync(device)
         plain_s = time.perf_counter() - t0
     del params
-    want = cfg.n_layers if device.type == "cuda" else 0
-    if launches[name] != want:
-        raise AssertionError(f"prefill launched {name} {launches[name]} "
-                             f"times, want {want}")
+    dropped = dropped_share(routes)
+    del routes
+    if device.type != "cuda":
+        want = {n: 0 for n in want}
+    if launches != want:
+        raise AssertionError(f"prefill launched {launches}, want {want}")
     if tuple(logits.shape) != (batch, seq, padded_vocab(cfg)):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
     v = cfg.vocab
@@ -1616,36 +1788,140 @@ def phase_prefill(device, cfg, batch: int, seq: int, seed: int = 0,
     del diff
     scale, mean_mag = float(lk.abs().max()), float(lk.abs().mean())
     tokens = batch * seq
-    log(f"prefill {cfg.name} {batch}x{seq} {cfg.dtype} on {card or device}: "
-        f"kernel {kernel_s:.4f} s ({tokens / kernel_s:.1f} tok/s), plain "
-        f"{name} {plain_s:.4f} s ({tokens / plain_s:.1f} tok/s); logits "
-        f"|max| {scale:.4g}, mean |logit| {mean_mag:.4g}; kernel vs plain: "
-        f"max abs diff {max_abs:.4g}, mean abs diff {mean_abs:.4g}, greedy "
-        f"tokens equal {greedy:.2%}; launches {launches}")
-    lim_max, lim_mean, lim_greedy = limits
-    if max_abs > lim_max or mean_abs > lim_mean or greedy < lim_greedy:
+    extra = f" over {cfg.enc_frames} frames" if cfg.family == "encdec" \
+        else ""
+    drop = "" if dropped is None else (
+        f"; expert assignments dropped {dropped:.4%}; plain run with the "
+        f"kernel run's routes replayed")
+    log(f"prefill {cfg.name} {batch}x{seq}{extra} {cfg.dtype} seed {seed} "
+        f"on {card or device}: kernels {kernel_s:.4f} s "
+        f"({tokens / kernel_s:.1f} tok/s), plain {'/'.join(want)} "
+        f"{plain_s:.4f} s ({tokens / plain_s:.1f} tok/s); logits |max| "
+        f"{scale:.4g}, mean |logit| {mean_mag:.4g}; kernels vs plain: max "
+        f"abs diff {max_abs:.4g}, mean abs diff {mean_abs:.4g}, greedy "
+        f"tokens equal {greedy:.2%}; launches {launches}{drop}")
+    lim_max, lim_mean, lim_greedy = PREFILL_LIMITS[cfg.family]
+    fails = [n for n, out in (("max_abs", max_abs > lim_max),
+                              ("mean_abs", mean_abs > lim_mean),
+                              ("greedy", greedy < lim_greedy)) if out]
+    if hold and fails:
         raise AssertionError(
             f"prefill kernel vs plain: max abs {max_abs:.4g} (limit "
             f"{lim_max}), mean abs {mean_abs:.4g} (limit {lim_mean}), "
             f"greedy share {greedy:.4f} (limit {lim_greedy})")
     return {"launches": launches, "kernel_s": kernel_s, "plain_s": plain_s,
-            "max_abs": max_abs, "mean_abs": mean_abs, "greedy": greedy}
+            "max_abs": max_abs, "mean_abs": mean_abs, "greedy": greedy,
+            "dropped": dropped, "fails": fails}
+
+
+def _drop_key_tile(kernel: Callable) -> Callable:
+    """``kernel`` that leaves out the last 64 keys (one key tile; half
+    the keys of a shorter sequence)."""
+    def faulty(q, k, v, causal=True):
+        sk = k.shape[2] - min(64, k.shape[2] // 2)
+        return kernel(q, k[:, :, :sk], v[:, :, :sk], causal)
+    return faulty
+
+
+def _round_fp8(kernel: Callable) -> Callable:
+    """``kernel`` whose output is rounded to float8 e4m3 (3 mantissa
+    bits, 5 fewer than bf16)."""
+    def faulty(q, k, v, causal=True):
+        return kernel(q, k, v, causal).to(torch.float8_e4m3fn).to(q.dtype)
+    return faulty
+
+
+#: planted faults of ``flash_attention`` that ``MOE_PREFILL_*`` must catch
+PREFILL_FAULTS = {"drop_key_tile": _drop_key_tile, "round_fp8": _round_fp8}
+
+
+@contextlib.contextmanager
+def planted_fault(fault: Callable):
+    """The models' ``flash_attention`` replaced by ``fault`` of it for
+    the duration."""
+    kernel = layers_mod.flash_attention
+    layers_mod.flash_attention = fault(kernel)
+    try:
+        yield
+    finally:
+        layers_mod.flash_attention = kernel
+
+
+def phase_prefill_faults(device, cfg, batch: int = PREFILL_BATCH,
+                         seq: int = PREFILL_SEQ, seeds=(1, 2),
+                         card: str = "", seed: int = 5) -> Dict[str, Dict]:
+    """The evidence behind ``cfg``'s prefill limits: ``phase_prefill``
+    at each of ``seeds`` (sound readings beside the prefill phase's seed
+    0, each within every limit) and at the first seed with each of
+    ``PREFILL_FAULTS`` planted in the kernel run; each fault also held,
+    as ``phase_family_kernels`` holds the kernel, to
+    ``flash_attention_plain`` within FLASH_ATOL on seeded bf16 inputs at
+    one layer's prefill shape.  Every fault must fail one of the two
+    checks; which ones it fails is logged.  All readings are taken and
+    logged before either rule is enforced."""
+    device = torch.device(device)
+    out = {f"seed {s}": phase_prefill(device, cfg, batch, seq, seed=s,
+                                      card=card, hold=False) for s in seeds}
+    q, k, v = _attn_inputs(attn_shape(cfg, batch, seq), torch.bfloat16,
+                           device, seed)
+    want = flash_attention_plain(q, k, v, True).float()
+    for name, fault in PREFILL_FAULTS.items():
+        with planted_fault(fault):
+            out[name] = phase_prefill(device, cfg, batch, seq, seed=seeds[0],
+                                      card=card, hold=False)
+        got = fault(flash_attention)(q, k, v, True).float()
+        out[name]["kernel_err"] = float((got - want).abs().max())
+        del got
+    del q, k, v, want
+    for name, r in out.items():
+        held = "" if "kernel_err" not in r else (
+            f"; kernel vs plain max abs err {r['kernel_err']:.4g} (limit "
+            f"{FLASH_ATOL[torch.bfloat16]})")
+        log(f"prefill_faults {cfg.name} {name}: max abs {r['max_abs']:.4g},"
+            f" mean abs {r['mean_abs']:.4g}, greedy {r['greedy']:.4f}; "
+            f"limits {PREFILL_LIMITS[cfg.family]} passed: "
+            f"{r['fails'] or 'none'}{held}")
+    missed = [n for n in PREFILL_FAULTS if not out[n]["fails"] and
+              not out[n]["kernel_err"] > FLASH_ATOL[torch.bfloat16]]
+    unsound = [n for n in out if n not in PREFILL_FAULTS and out[n]["fails"]]
+    if missed or unsound:
+        raise AssertionError(f"prefill_faults: faults missed {missed}, "
+                             f"sound readings past a limit {unsound}")
+    return out
+
+
+def consistency_config(cfg, **kw):
+    """``cfg`` with ``kw`` replaced and, with MoE layers, the capacity
+    factor at ``CONSISTENCY_CAPACITY`` (nothing drops)."""
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe,
+                                        capacity_factor=CONSISTENCY_CAPACITY)
+    return dataclasses.replace(cfg, **kw)
 
 
 def phase_consistency(device, cfg, seq: int = 512, seed: int = 4,
                       card: str = "") -> float:
     """In fp32, the last-position logits of a ``seq``-token prefill
     against ``seq`` ``serve_step`` decode steps (the reference's
-    test_ssd_prefill_matches_decode, for the whole model).  Returns the
-    max abs difference."""
+    test_ssd_prefill_matches_decode, for the whole model); Whisper's
+    cross cache is primed from the prefill's frames (cast to fp32)
+    first.  Returns the max abs difference."""
     device = torch.device(device)
     cfg = dataclasses.replace(cfg, dtype="float32")
     params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
-    toks = api.make_batch(cfg, torch.Generator(device).manual_seed(seed + 1),
-                          1, seq)["tokens"]
-    full = make_prefill_step(cfg, device)(params, {"tokens": toks})[:, -1]
+    data = api.make_batch(cfg, torch.Generator(device).manual_seed(seed + 1),
+                          1, seq)
+    toks = data.pop("tokens")
+    data.pop("labels")
+    data = {k: v.float() for k, v in data.items()}
+    full = make_prefill_step(cfg, device)(
+        params, dict(data, tokens=toks))[:, -1]
     step = make_serve_step(cfg, device)
     cache = api.init_cache(cfg, 1, seq, dtype=torch.float32, device=device)
+    if cfg.family == "encdec":
+        with torch.inference_mode():
+            cache = encdec_mod.prime_cache(cfg, params, cache,
+                                           data["frames"])
     t0 = time.perf_counter()
     for t in range(seq):
         last, cache = step(params, cache, toks[:, t], torch.full((1,), t))
@@ -1657,10 +1933,13 @@ def phase_consistency(device, cfg, seq: int = 512, seed: int = 4,
     if not err <= CONSISTENCY_ATOL or not same:
         raise AssertionError(f"prefill vs decode: max abs {err:.4g} (limit "
                              f"{CONSISTENCY_ATOL}), same greedy token {same}")
-    log(f"consistency {cfg.name} fp32 {seq} tokens on {card or device}: "
-        f"prefill vs {seq} decode steps max abs {err:.3g} (logits |max| "
-        f"{float(full[:, :v].abs().max()):.4g}), same greedy token; decode "
-        f"{decode_s:.3f} s ({seq / decode_s:.1f} steps/s, batch 1)")
+    cap = "" if cfg.moe is None else \
+        f", capacity factor {cfg.moe.capacity_factor} (nothing drops)"
+    log(f"consistency {cfg.name} fp32 {cfg.n_layers} layers{cap}, {seq} "
+        f"tokens on {card or device}: prefill vs {seq} decode steps max abs "
+        f"{err:.3g} (logits |max| {float(full[:, :v].abs().max()):.4g}), "
+        f"same greedy token; decode {decode_s:.3f} s ({seq / decode_s:.1f} "
+        f"steps/s, batch 1)")
     return err
 
 
@@ -1668,9 +1947,18 @@ def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
                 max_new: int = 16, seed: int = 0, card: str = "") -> Dict:
     """``Server`` on ``cfg`` (its own seed-0 weights) answers
     ``n_requests`` requests of 4-12 prompt tokens (serve.py's CLI
-    defaults); every request ends with ``max_new`` tokens."""
+    defaults); every request ends with ``max_new`` tokens.  Whisper's
+    server gets its cross cache primed from seeded frames first (the
+    server, as the reference's, never primes it)."""
     device = torch.device(device)
     server = Server(cfg, batch=batch, device=device)
+    if cfg.family == "encdec":
+        frames = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                             generator=torch.Generator(device).manual_seed(
+                                 seed + 1), device=device)
+        with torch.inference_mode():
+            server.cache = encdec_mod.prime_cache(
+                cfg, server.params, server.cache, frames.to(torch.bfloat16))
     rng = np.random.default_rng(seed)
     reqs = [Request(rid, rng.integers(0, cfg.vocab,
                                       size=rng.integers(4, 12)).tolist(),
@@ -1692,6 +1980,45 @@ def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
         f"requests ({prompt} prompt tokens) done, {out} new tokens in "
         f"{wall:.3f} s ({out / wall:.1f} tok/s)")
     return {"wall_s": wall, "new_tokens": out, "prompt_tokens": prompt}
+
+
+def phase_moe_dispatch(device, cfg, shape=MOE_DISPATCH_SHAPE, seed: int = 8,
+                       reps: int = 5, card: str = "") -> Dict:
+    """One seeded MoE layer's ``moe_ffn`` on ``device`` against the same
+    function with the input and the weights copied to the CPU: every
+    route's expert, slot and kept flag equal, the output within
+    ``MOE_DISPATCH_ATOL``, the aux loss within 1e-5; the layer's time on
+    the device and its dropped share."""
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    layer = moe_mod.MoELayer(cfg, gen, device)
+    x = torch.randn((*shape, cfg.d_model), generator=gen, device=device) \
+        .to(layers_mod._dtype(cfg))
+    host = moe_mod.MoELayer(cfg, None, "cpu")
+    host.load_state_dict(layer.state_dict())
+    routes: List[Tuple[torch.Tensor, ...]] = []
+    with torch.inference_mode(), record_routes(routes):
+        got, aux = moe_mod.moe_ffn(cfg, layer, x)
+        want, aux_host = moe_mod.moe_ffn(cfg, host, x.cpu())
+    for name, a, b in zip(("eid", "slot", "keep"), routes[0], routes[1]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"moe_dispatch: {name} differs from the "
+                                 f"CPU's at {int((a.cpu() != b).sum())} "
+                                 f"assignments")
+    err = float((got.float().cpu() - want.float()).abs().max())
+    aux_err = abs(float(aux) - float(aux_host))
+    if not err <= MOE_DISPATCH_ATOL or not aux_err <= 1e-5:
+        raise AssertionError(f"moe_dispatch: max abs err {err:.4g} (limit "
+                             f"{MOE_DISPATCH_ATOL}), aux err {aux_err:.3g}")
+    with torch.inference_mode():
+        ms = _time_ms(lambda: moe_mod.moe_ffn(cfg, layer, x), device, reps)
+    g, capacity = moe_mod.dispatch_shape(cfg, shape[0] * shape[1])
+    dropped = dropped_share(routes[:1])
+    log(f"moe_dispatch {cfg.name} {shape[0]}x{shape[1]} {cfg.dtype} on "
+        f"{card or device}: {g} groups, capacity {capacity}; routes equal "
+        f"to the CPU's, output max abs err {err:.3g}, aux err "
+        f"{aux_err:.3g}; dropped {dropped:.4%}; {ms:.4f} ms a layer")
+    return {"max_abs_err": err, "dropped": dropped, "ms": ms}
 
 
 # ---------------------------------------------------------------------- #
@@ -1768,30 +2095,93 @@ def phase_flash_kernel(device, prefill_shape=None, shapes=ATTN_SHAPES,
                 log(f"flash_kernel {shape} {dtype} causal={causal}: max abs "
                     f"err {err:.3g}")
                 continue
-            bound, by = flash_bound(shape, dtype)
             r = {"name": "flash_attention", "route": "cuda",
                  "source": KERNEL_INFO["flash_attention"][0],
                  "replaces": KERNEL_INFO["flash_attention"][1],
-                 "launches": 0, "max_abs_err": err,
-                 "ms": _time_ms(lambda: flash_attention(q, k, v), device,
-                                reps),
-                 "plain_ms": _time_ms(lambda: flash_attention_plain(q, k, v),
-                                      device, reps),
-                 "bound_ms": bound, "bound_by": by,
-                 "library_ms": _time_ms(
-                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                         q, k, v, is_causal=True, enable_gqa=True),
-                     device, reps)}
-            tflops = flash_flops(shape) / r["ms"] * 1e-9
-            log(f"flash_kernel {shape} {dtype} causal on {card or device}: "
-                f"max abs err {err:.3g}; {r['ms']:.4f} ms, {tflops:.1f} "
-                f"TFLOP/s, {bound / r['ms']:.1%} of the bound {bound:.4f} "
-                f"ms by {by} (plain {r['plain_ms']:.4f}, SDPA "
-                f"{r['library_ms']:.4f})")
+                 "launches": 0,
+                 **_flash_times(q, k, v, causal, err, device, reps, card)}
             if dtype == torch.bfloat16:
                 rec = r
             del q, k, v
     return rec
+
+
+def _flash_times(q, k, v, causal: bool, err: float, device, reps: int,
+                 card: str) -> Dict:
+    """The kernel's time on q, k, v beside its bound, the plain version's
+    and SDPA's (top-left causal mask, as the kernel's), logged."""
+    shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
+    bound, by = flash_bound(shape, q.dtype, causal)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    r = {"max_abs_err": err,
+         "ms": _time_ms(lambda: flash_attention(q, k, v, causal), device,
+                        reps),
+         "plain_ms": _time_ms(lambda: flash_attention_plain(q, k, v, causal),
+                              device, reps),
+         "bound_ms": bound, "bound_by": by,
+         "library_ms": _time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                             enable_gqa=True), device, reps)}
+    tflops = flash_flops(shape, causal) / r["ms"] * 1e-9
+    log(f"flash_kernel {shape} {q.dtype} causal={causal} on {card or device}"
+        f": max abs err {err:.3g}; {r['ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
+        f"{bound / r['ms']:.1%} of the bound {bound:.4f} ms by {by} (plain "
+        f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
+    return r
+
+
+def phase_flash_shapes(device, cases=WHISPER_ATTN, reps: int = 10,
+                       seed: int = 9, card: str = "") -> Dict[str, Dict]:
+    """``flash_attention`` against ``flash_attention_plain`` within
+    FLASH_ATOL at each ((b, h, hkv, sq, sk, d), causal) of ``cases`` in
+    bf16 and fp32; the first case timed beside its bound, the plain
+    version's and SDPA's.  Returns the first case's records by dtype."""
+    device = torch.device(device)
+    recs = {}
+    for i, (shape, causal) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _attn_inputs(shape, dtype, device, seed)
+            got = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            err = float((got.float() - want.float()).abs().max())
+            if got.shape != want.shape or got.dtype != dtype or \
+                    not bool(torch.isfinite(got).all()) or \
+                    not err <= FLASH_ATOL[dtype]:
+                raise AssertionError(f"flash_attention != plain at {shape} "
+                                     f"{dtype} causal={causal}: max abs "
+                                     f"err {err}")
+            del got, want
+            if i:
+                log(f"flash_kernel {shape} {dtype} causal={causal}: max abs "
+                    f"err {err:.3g}")
+                continue
+            recs["bf16" if dtype == torch.bfloat16 else "fp32"] = \
+                {"shape": list(shape), "causal": causal,
+                 **_flash_times(q, k, v, causal, err, device, reps, card)}
+    return recs
+
+
+def family_attn_cases():
+    """The ``flash_attention`` calls of the family paths, ((b, h, hkv,
+    sq, sk, d), causal): Whisper's (``WHISPER_ATTN``, the encoder first),
+    then one layer's prefill of Qwen2-MoE-A2.7B and of the reduced Jamba
+    at ``PREFILL_BATCH`` x ``PREFILL_SEQ``."""
+    return WHISPER_ATTN + tuple(
+        (attn_shape(c, PREFILL_BATCH, PREFILL_SEQ), True)
+        for c in (TC.get(MOE_ARCH), hybrid_config()))
+
+
+def phase_family_kernels(device, card: str = "", reps: int = 10
+                         ) -> Tuple[Dict[str, Dict], Dict]:
+    """Phase 19: ``phase_flash_shapes`` on ``family_attn_cases`` and
+    ``phase_ssd_kernel`` at the reduced Jamba's prefill shape alone.
+    Returns the Whisper encoder's flash records by dtype and Jamba's
+    bf16 ``ssd_chunk`` record."""
+    flash = phase_flash_shapes(device, family_attn_cases(), reps=reps,
+                               card=card)
+    ssd = phase_ssd_kernel(device, ssd_shape(hybrid_config(), PREFILL_BATCH,
+                                             PREFILL_SEQ), shapes=(),
+                           reps=reps, card=card)
+    return flash, ssd
 
 
 def bsmm_bound(n_tiles: int, bm: int, bk: int, K: int, N: int, m: int,
@@ -1919,6 +2309,69 @@ def phase_kernels_bench(device) -> Dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 19-29: the MoE, encoder-decoder and hybrid model paths
+# ---------------------------------------------------------------------- #
+def hybrid_config():
+    """``jamba-1.5-large-398b`` as ``HYBRID_REDUCTION`` cuts it to one
+    card: 11.56B parameters, 23.1 GB in bf16 and 46.3 GB in fp32 (the
+    full model: 796 GB in bf16)."""
+    cfg = TC.get(HYBRID_ARCH)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-1sb-half", n_layers=cfg.hybrid_block,
+        d_model=cfg.d_model // 2, n_heads=cfg.n_heads // 2,
+        d_ff=cfg.d_ff // 2,
+        moe=dataclasses.replace(cfg.moe, d_expert=cfg.moe.d_expert // 2))
+
+
+def _timed(name: str, smi: str, fn: Callable, /, *args, **kw):
+    """``fn(*args, **kw)``, its seconds logged as phase ``name``'s."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
+def family_plan():
+    """Phases 20-29, one model each: (path, config, prefill tokens, the
+    consistency phase's config and tokens)."""
+    moe, enc, hyb = TC.get(MOE_ARCH), TC.get(ENCDEC_ARCH), hybrid_config()
+    return (("moe", moe, PREFILL_SEQ, consistency_config(
+                moe, n_layers=MOE_CONSISTENCY_LAYERS), MOE_CONSISTENCY_SEQ),
+            ("encdec", enc, ENCDEC_PREFILL_SEQ, enc, ENCDEC_CONSISTENCY_SEQ),
+            ("hybrid", hyb, PREFILL_SEQ, consistency_config(hyb),
+             HYBRID_CONSISTENCY_SEQ))
+
+
+def phase_families(device, card: str, plan=None, batch: int = PREFILL_BATCH,
+                   dispatch_shape=MOE_DISPATCH_SHAPE
+                   ) -> Dict[str, Dict[str, int]]:
+    """Phases 20-29 (``family_plan``), one model at a time, the cache
+    emptied after each phase: prefill, consistency and serve, and for
+    the MoE model one layer's dispatch against the CPU.  Returns each
+    prefill path's kernel launches."""
+    paths = {}
+    for path, cfg, seq, cons, cons_seq in plan or family_plan():
+        phases = [("prefill", phase_prefill, (cfg, batch, seq)),
+                  ("consistency", phase_consistency, (cons, cons_seq)),
+                  ("serve", phase_serve, (cfg,))]
+        if cfg.family == "moe":
+            phases.insert(1, ("prefill_faults", phase_prefill_faults,
+                              (cfg, batch, seq)))
+            phases.append(("dispatch", phase_moe_dispatch,
+                           (cfg, dispatch_shape)))
+        for name, fn, args in phases:
+            out = _timed(f"{path}_{name}", card, fn, device, *args,
+                         card=card)
+            if name == "prefill":
+                paths[f"{path}_prefill"] = out["launches"]
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1973,11 +2426,25 @@ def main() -> int:
     phase_consistency("cuda", dense, seq=DENSE_CONSISTENCY_SEQ, card=smi)
     torch.cuda.empty_cache()
     phase_serve("cuda", dense, card=smi)
+    torch.cuda.empty_cache()
+    flash_rec["whisper_encoder"], jamba_ssd = _timed(
+        "family_kernels", smi, phase_family_kernels, "cuda", card=smi)
+    ssd_rec["jamba_prefill_shape"] = {
+        k: jamba_ssd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by")}
+    torch.cuda.empty_cache()
+    log(f"hybrid: {hybrid_config().name} = {HYBRID_ARCH} with "
+        f"{HYBRID_REDUCTION}")
+    families = phase_families("cuda", smi)
     model_paths = {"ssd_chunk": "prefill", "flash_attention": "dense_prefill",
                    "block_sparse_matmul": "kernels_bench"}
     for rec in kernels:
         rec.setdefault("launches_by_path",
                        {model_paths.get(rec["name"]): rec["launches"]})
+        for path, launches in families.items():
+            if rec["name"] in launches:
+                rec["launches_by_path"][path] = launches[rec["name"]]
+                rec["launches"] += launches[rec["name"]]
         n = throughput[rec["name"]]
         rec["launches_by_path"]["throughput"] = n
         rec["launches"] += n

@@ -80,32 +80,49 @@ def tensor_from_array(arr: Any) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _layer_stacks(cfg) -> Dict[str, int]:
+    """The reference tree's per-layer stacks of ``cfg``'s family and how
+    many layers each holds."""
+    if cfg.family == "encdec":
+        return {"enc": cfg.enc_layers, "dec": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"blocks": cfg.n_layers // cfg.hybrid_block}
+    return {"blocks": cfg.n_layers}
+
+
 def model_params_from_reference(tree: Dict[str, Any], cfg,
                                 device=None) -> torch.nn.Module:
     """The reference's model parameter pytree, given as numpy arrays, as
-    this package's model of ``cfg``'s family (``Mamba2LM``,
-    ``TransformerLM``) on ``device`` (the CPU by default).
+    this package's model of ``cfg``'s family (``TransformerLM``,
+    ``MoELM``, ``Mamba2LM``, ``HybridLM``, ``EncDecLM``) on ``device``
+    (the CPU by default).
 
-    ``tree["blocks"]`` is a list of per-layer trees (``scan_layers=False``)
-    or one tree of arrays stacked over the layers (``scan_layers=True``,
-    built by ``jax.vmap``).  Empty subtrees (OLMo's non-parametric norms)
-    and a missing ``head`` (tied embeddings) are absent on both sides.
-    Every parameter must be present with the port's shape and dtype;
-    values are copied bit for bit."""
+    Each per-layer stack (``blocks``; ``enc`` and ``dec`` for encdec; a
+    hybrid's ``blocks`` hold superblocks) is a list of per-layer trees
+    (``scan_layers=False``) or one tree of arrays stacked over the
+    layers (``scan_layers=True``, built by ``jax.vmap``).  Empty
+    subtrees (OLMo's non-parametric norms) and a missing ``head`` (tied
+    embeddings) are absent on both sides.  Every parameter must be
+    present with the port's shape and dtype; values are copied bit for
+    bit."""
     from .models import api
 
-    blocks = tree["blocks"]
-    if isinstance(blocks, dict):
-        stacked = _flatten(blocks)
-        blocks = [{k: v[i] for k, v in stacked.items()}
-                  for i in range(cfg.n_layers)]
-    else:
-        blocks = [_flatten(b) for b in blocks]
-    if len(blocks) != cfg.n_layers:
-        raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
-    src = _flatten({"embed": tree["embed"], "ln_f": tree["ln_f"]})
-    for i, blk in enumerate(blocks):
-        src.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+    src: Dict[str, Any] = {}
+    stacks = _layer_stacks(cfg)
+    for key, sub in tree.items():
+        if key not in stacks:
+            src.update(_flatten({key: sub}))
+            continue
+        if isinstance(sub, dict):
+            stacked = _flatten(sub)
+            n = len(next(iter(stacked.values()))) if stacked else 0
+            sub = [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+        else:
+            sub = [_flatten(b) for b in sub]
+        if len(sub) != stacks[key]:
+            raise ValueError(f"{len(sub)} {key} for {stacks[key]} layers")
+        for i, blk in enumerate(sub):
+            src.update({f"{key}.{i}.{k}": v for k, v in blk.items()})
 
     model = api.init(cfg, None, device)
     with torch.no_grad():

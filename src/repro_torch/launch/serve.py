@@ -41,6 +41,9 @@ class Server:
 
     ``params`` defaults to the seed-0 weights of ``api.init``; pass a
     module (e.g. weights carried from the reference) to serve those.
+    The cache comes from ``api.init_cache``; an encoder-decoder's cross
+    cache stays zero until ``encdec.prime_cache`` fills it, as in the
+    reference.
     """
 
     def __init__(self, cfg, batch: int = 4, max_len: int = 256,

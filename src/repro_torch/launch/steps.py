@@ -26,9 +26,15 @@ def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
     def prefill_step(params: nn.Module, batch: Dict[str, torch.Tensor]):
         with torch.inference_mode():
             tokens = batch["tokens"].to(device)
+            if cfg.family == "encdec":
+                return mod.forward(cfg, params, tokens,
+                                   batch["frames"].to(device))
             if cfg.family == "vlm":
                 return mod.forward(cfg, params, tokens,
                                    extra_embeds=batch["patches"].to(device))
+            if cfg.family in ("moe", "hybrid"):
+                logits, _aux = mod.forward(cfg, params, tokens)
+                return logits
             return mod.forward(cfg, params, tokens)
 
     return prefill_step
@@ -37,7 +43,6 @@ def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
 def make_serve_step(cfg: ModelConfig, device=None) -> Callable:
     """One decode step for every slot of the batch."""
     device = resolve_device(device)
-    api._mod(cfg)
 
     def serve_step(params: nn.Module, cache: Dict[str, torch.Tensor],
                    token: torch.Tensor, pos: torch.Tensor):

@@ -6,11 +6,12 @@
     serve_step(cfg, params, cache, token, pos)  -> (logits, cache)
 
 Batch layout per family:
-    dense/ssm: {tokens [b, s] int64, labels [b, s] int64}
-    vlm:       + patches [b, n_patches, d_model] bf16
+    dense/moe/ssm/hybrid: {tokens [b, s] int64, labels [b, s] int64}
+    vlm:                  + patches [b, n_patches, d_model] bf16
+    encdec:               + frames  [b, enc_frames, d_model] bf16
 
-The port has the ``dense``, ``vlm`` and ``ssm`` families so far; the
-others raise ``NotImplementedError``.
+The moe and hybrid forwards return ``(logits, aux)``; ``loss_fn`` adds
+the router's auxiliary loss.
 """
 from __future__ import annotations
 
@@ -20,17 +21,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 
-_FAMILIES = {"dense": transformer, "vlm": transformer, "ssm": ssm}
+_FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe,
+             "ssm": ssm, "hybrid": hybrid, "encdec": encdec}
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"repro_torch has no {cfg.family!r} models yet (only "
-            f"{sorted(_FAMILIES)}); ROADMAP.md lists the families still "
-            f"to port")
     return _FAMILIES[cfg.family]
 
 
@@ -58,7 +55,6 @@ def serve_step(cfg: ModelConfig, params: nn.Module,
 def make_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
                seq: int) -> Dict[str, torch.Tensor]:
     """Random batch with the family's layout, on ``gen``'s device."""
-    _mod(cfg)
     kw = dict(generator=gen, device=gen.device)
     out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), **kw),
            "labels": torch.randint(0, cfg.vocab, (batch, seq), **kw)}
@@ -66,6 +62,9 @@ def make_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
         # labels cover only the token positions
         out["patches"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
                                      **kw).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                                    **kw).to(torch.bfloat16)
     return out
 
 

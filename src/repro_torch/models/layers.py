@@ -61,6 +61,14 @@ def _normal(shape, gen: Optional[torch.Generator], device, scale: float,
             * scale).to(dtype)
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as JAX promotes a
+    bf16 activation meeting an fp32 weight (whisper's bf16 frames in an
+    fp32 model); torch refuses mixed-dtype products."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 # ---------------------------------------------------------------------- #
 # norms
 # ---------------------------------------------------------------------- #
@@ -145,9 +153,9 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     nh, nkv, h = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = _mm(x, p["wq"])
+    k = _mm(x, p["wk"])
+    v = _mm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, nh, h)
@@ -179,14 +187,28 @@ def mha(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
-    """Full attention block (no cache).  The reference's ``kv`` override
-    (cross-attention) comes with the encoder-decoder family."""
+              causal: bool = True,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """Full attention block (no cache).  ``kv`` overrides keys/values for
+    cross-attention (whisper decoder): the mask is then non-causal and
+    only ``q`` takes RoPE at ``pos``.
+
+    The kernel takes q, k and v of one dtype, so ``q`` and ``kv`` are
+    cast to their promoted dtype first.  For a bf16 cross cache in an
+    fp32 model the reference promotes in the QK product and then rounds
+    the softmax weights to bf16 for PV; here PV stays fp32, so the two
+    agree to bf16 rounding there, not to fp32 reassociation."""
     b, s, d = x.shape
     q, k, v = _qkv(cfg, p, x, pos)
+    if kv is not None:
+        k, v = kv
+        causal = False
+        dt = torch.promote_types(q.dtype, k.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     out = mha(cfg, q, k, v, causal=causal)
     out = out.reshape(b, s, cfg.n_heads * cfg.hdim)
-    return (out @ p["wo"]).to(x.dtype)
+    return _mm(out, p["wo"]).to(x.dtype)
 
 
 def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
@@ -223,18 +245,15 @@ def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
     logits = torch.where(valid[:, None, None], logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(cache_v.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", w, cache_v).reshape(b, 1, nh * h)
-    dt = torch.promote_types(out.dtype, p["wo"].dtype)
-    return out.to(dt) @ p["wo"].to(dt), cache_k, cache_v
+    return _mm(out, p["wo"]), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------- #
 # FFN
 # ---------------------------------------------------------------------- #
 def init_ffn(cfg: ModelConfig, gen: Optional[torch.Generator],
-             device=None) -> Params:
-    """The reference's ``d_ff`` override (MoE experts) comes with the MoE
-    family."""
-    d, f = cfg.d_model, cfg.d_ff
+             device=None, d_ff: Optional[int] = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = _dtype(cfg)
     p = Params()
     p.add("w_in", _normal((d, f), gen, device, 1.0 / math.sqrt(d), dt))
@@ -247,14 +266,14 @@ def init_ffn(cfg: ModelConfig, gen: Optional[torch.Generator],
 def ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """swiglu, geglu (grok-1-style gated gelu) or gelu; gelu is the tanh
     approximation, ``jax.nn.gelu``'s default."""
-    h = x @ p["w_in"]
+    h = _mm(x, p["w_in"])
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * h
+        h = F.silu(_mm(x, p["w_gate"])) * h
     elif cfg.act == "geglu":
-        h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
+        h = F.gelu(_mm(x, p["w_gate"]), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return (h @ p["w_out"]).to(x.dtype)
+    return _mm(h, p["w_out"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------- #

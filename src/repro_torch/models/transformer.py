@@ -9,7 +9,7 @@ in decode (``layers.attention_decode``), as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -103,6 +103,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def widen_kv(cache: Dict[str, torch.Tensor], dtype: torch.dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache's ``k`` and ``v``, widened to their promoted dtype with
+    ``dtype`` when narrower (a copy), else the cache's own tensors."""
+    ks, vs = cache["k"], cache["v"]
+    wide = torch.promote_types(ks.dtype, dtype)
+    if ks.dtype != wide:
+        ks, vs = ks.to(wide), vs.to(wide)
+    return ks, vs
+
+
 def decode_block(cfg: ModelConfig, p, x: torch.Tensor, ck: torch.Tensor,
                  cv: torch.Tensor, pos: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -114,20 +125,19 @@ def decode_block(cfg: ModelConfig, p, x: torch.Tensor, ck: torch.Tensor,
 
 
 def serve_step(cfg: ModelConfig, params, cache: Dict[str, torch.Tensor],
-               token: torch.Tensor, pos: torch.Tensor
+               token: torch.Tensor, pos: torch.Tensor,
+               block: Callable = decode_block
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: token [b], pos [b] -> logits [b, padded vocab].
 
     Each layer writes its new key and value into the stacked cache in
     place (the reference returns a new cache); a cache narrower than the
-    model's dtype is widened once first, as the reference promotes it."""
+    model's dtype is widened once first, as the reference promotes it.
+    ``block`` is the layer's decode (the MoE family passes its own)."""
     x = L.embed(cfg, params["embed"], token[:, None])
-    ks, vs = cache["k"], cache["v"]
-    wide = torch.promote_types(ks.dtype, x.dtype)
-    if ks.dtype != wide:
-        ks, vs = ks.to(wide), vs.to(wide)
+    ks, vs = widen_kv(cache, x.dtype)
     for i, blk in enumerate(params["blocks"]):
-        x, _, _ = decode_block(cfg, blk, x, ks[i], vs[i], pos)
+        x, _, _ = block(cfg, blk, x, ks[i], vs[i], pos)
     x = L.norm(cfg, params["ln_f"], x)
     logits = L.lm_head(cfg, params["embed"], x)
     return logits[:, 0], {"k": ks, "v": vs}

@@ -84,6 +84,15 @@ logits = make_prefill_step(dense, device="cpu")(
 assert logits.shape == (1, 32, 512) and bool(torch.isfinite(logits).all())
 assert all(r.err <= r.limit for r in kernels_bench.run("cpu", reps=1))
 
+from repro_torch.models import api
+for arch in ("qwen2-moe-a2.7b", "whisper-small", "jamba-1.5-large-398b"):
+    cfg = C.get_smoke(arch)
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    batch = api.make_batch(cfg, torch.Generator().manual_seed(1), 1, 32)
+    logits = make_prefill_step(cfg, device="cpu")(params, batch)
+    assert logits.shape == (1, 32, 512)
+    assert bool(torch.isfinite(logits).all()), arch
+
 from repro_torch.dse import DesignSpace, SweepEngine
 from repro_torch.bench import dse_sweep
 inputs, shapes = dse_sweep.workload(m=24, k=24, n=24)
@@ -548,3 +557,117 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("arch,seq", [("qwen2-moe-a2.7b", 64),
+                                      ("whisper-small", 24),
+                                      ("jamba-1.5-large-398b", 64)])
+def test_chip_smoke_family_phases_rehearse_on_cpu(chip_smoke, arch, seq):
+    """Phases 20-29 at the smoke configs: the CPU takes the plain
+    versions, so every kernel of the family counts 0 launches; the MoE
+    families report their dropped share."""
+    import repro_torch.configs as C
+    torch.exp(torch.rand(1 << 22))       # see the model phases' test
+    cfg = C.get_smoke(arch)
+    out = chip_smoke.phase_prefill("cpu", cfg, 2, seq)
+    want = {"moe": {"flash_attention": 0}, "encdec": {"flash_attention": 0},
+            "hybrid": {"flash_attention": 0, "ssd_chunk": 0}}[cfg.family]
+    assert out["launches"] == want
+    assert out["max_abs"] == 0.0 and out["greedy"] == 1.0
+    assert (out["dropped"] is None) == (cfg.family == "encdec")
+    cons = chip_smoke.consistency_config(cfg)
+    assert (cons.moe is None) == (cfg.family == "encdec")
+    err = chip_smoke.phase_consistency("cpu", cons, seq=32)
+    assert err <= chip_smoke.CONSISTENCY_ATOL
+    served = chip_smoke.phase_serve("cpu", cfg, n_requests=3, batch=2,
+                                    max_new=4)
+    assert served["new_tokens"] == 12
+    if cfg.family == "moe":
+        rec = chip_smoke.phase_moe_dispatch("cpu", cfg, shape=(2, 64),
+                                            reps=1)
+        assert rec["max_abs_err"] == 0.0 and 0 < rec["dropped"] < 1
+
+
+def test_chip_smoke_family_driver_rehearses_on_cpu(chip_smoke, capsys):
+    """``phase_families`` over the three smoke configs: every phase runs
+    and logs its seconds, and each prefill path reports its launches."""
+    import repro_torch.configs as C
+    torch.exp(torch.rand(1 << 22))
+    plan = [(a.split("-")[0], C.get_smoke(a), 32,
+             chip_smoke.consistency_config(C.get_smoke(a)), 32)
+            for a in ("qwen2-moe-a2.7b", "whisper-small",
+                      "jamba-1.5-large-398b")]
+    paths = chip_smoke.phase_families("cpu", "cpu", plan, batch=2,
+                                      dispatch_shape=(2, 32))
+    assert paths == {"qwen2_prefill": {"flash_attention": 0},
+                     "whisper_prefill": {"flash_attention": 0},
+                     "jamba_prefill": {"flash_attention": 0,
+                                       "ssd_chunk": 0}}
+    out = capsys.readouterr().out
+    for name in ("qwen2_prefill", "qwen2_prefill_faults",
+                 "qwen2_consistency", "qwen2_serve",
+                 "qwen2_dispatch", "whisper_serve", "jamba_consistency"):
+        assert f"phase {name}: " in out
+
+
+def test_chip_smoke_prefill_launches_by_family(chip_smoke):
+    """The launches the card phases expect: one flash a layer (Qwen2-MoE
+    24), Whisper's encoder layers and two a decoder layer (36), and for
+    the reduced Jamba 1 flash and 7 ``ssd_chunk``."""
+    import repro_torch.configs as C
+    got = {a: chip_smoke.prefill_launches(C.get(a)) for a in
+           ("qwen2-moe-a2.7b", "whisper-small", "mamba2-1.3b", "qwen2-7b")}
+    assert got == {"qwen2-moe-a2.7b": {"flash_attention": 24},
+                   "whisper-small": {"flash_attention": 36},
+                   "mamba2-1.3b": {"ssd_chunk": 48},
+                   "qwen2-7b": {"flash_attention": 28}}
+    assert chip_smoke.prefill_launches(chip_smoke.hybrid_config()) == \
+        {"flash_attention": 1, "ssd_chunk": 7}
+
+
+def test_chip_smoke_family_kernel_cases(chip_smoke):
+    """Phase 19 holds flash at every attention shape of the family paths:
+    Whisper's four, then one causal prefill layer of Qwen2-MoE (16 heads)
+    and of the reduced Jamba (32 heads over 8 KV heads)."""
+    cases = chip_smoke.family_attn_cases()
+    assert cases[:4] == chip_smoke.WHISPER_ATTN
+    assert cases[4:] == (((4, 16, 16, 2048, 2048, 128), True),
+                         ((4, 32, 8, 2048, 2048, 128), True))
+
+
+def test_chip_smoke_prefill_faults_rehearse_on_cpu(chip_smoke):
+    """Phase moe_prefill_faults at the MoE smoke config: the sound readings
+    agree exactly on the CPU; the dropped key tile fails the prefill
+    limits; every planted fault fails the kernel hold."""
+    import repro_torch.configs as C
+    torch.exp(torch.rand(1 << 22))       # see the model phases' test
+    cfg = C.get_smoke("qwen2-moe-a2.7b")
+    out = chip_smoke.phase_prefill_faults("cpu", cfg, 2, 128, seeds=(0, 1))
+    assert set(out) == {"seed 0", "seed 1", *chip_smoke.PREFILL_FAULTS}
+    for s in ("seed 0", "seed 1"):
+        assert out[s]["max_abs"] == 0.0 and out[s]["fails"] == []
+    assert out["drop_key_tile"]["fails"] == ["max_abs", "mean_abs", "greedy"]
+    for name in chip_smoke.PREFILL_FAULTS:
+        assert out[name]["kernel_err"] > \
+            chip_smoke.FLASH_ATOL[torch.bfloat16]
+    assert chip_smoke.flash_attention.launches == 0
+
+
+def test_family_configs_at_their_card_sizes(chip_smoke):
+    """Parameters counted on the meta device: Qwen2-MoE-A2.7B 14.32B
+    (28.6 GB in bf16), the reduced Jamba 11.56B (23.1 GB in bf16, 46.3
+    GB in fp32) with the routing and SSM shapes of the full config."""
+    import repro_torch.configs as C
+    from repro_torch.models import api
+    from repro_torch.models import ssm as S
+
+    def count(cfg):
+        return sum(p.numel() for p in api.init(cfg, None, "meta")
+                   .parameters())
+    assert abs(count(C.get("qwen2-moe-a2.7b")) / 1e9 - 14.32) < 0.01
+    hyb, full = chip_smoke.hybrid_config(), C.get("jamba-1.5-large-398b")
+    assert abs(count(hyb) / 1e9 - 11.56) < 0.01
+    assert (hyb.moe.n_experts, hyb.moe.top_k, hyb.ssm, hyb.hdim) == \
+        (full.moe.n_experts, full.moe.top_k, full.ssm, full.hdim)
+    assert S.dims(hyb)[1:4] == (128, 64, 128)       # heads, P, N
+    assert chip_smoke.ssd_shape(hyb, 4, 2048) == (4, 8, 256, 128, 64, 128)

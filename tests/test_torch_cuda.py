@@ -94,13 +94,13 @@ def test_simulate_on_card_matches_cpu(cuda_device, design):
 #: (B, nc, l, H, P, N): ragged row tiles (l 16, 100), the reference's
 #: test shapes, head groups that do not divide H, P above one tile, N and
 #: P off the tensor-core tiles (200, 40), P and N off 16-byte rows (21,
-#: 37: element-wise loads and stores), and Mamba2-1.3B's prefill call at
-#: batch 1
+#: 37: element-wise loads and stores), and the prefill calls of
+#: Mamba2-1.3B and of Jamba's Mamba layers (128 heads) at batch 1
 SSD_CASES = [(1, 2, 16, 16, 16, 16), (2, 1, 100, 3, 24, 40),
              (1, 2, 64, 2, 32, 16), (2, 3, 128, 4, 64, 32),
              (1, 1, 256, 8, 64, 128), (1, 2, 512, 9, 96, 64),
              (1, 2, 128, 5, 40, 200), (1, 1, 100, 3, 21, 37),
-             (1, 8, 256, 64, 64, 128)]
+             (1, 8, 256, 64, 64, 128), (1, 8, 256, 128, 64, 128)]
 
 
 @pytest.mark.cuda
@@ -705,3 +705,106 @@ def test_seam_outputs_cuda_match_torch_on_card(cuda_device):
                          "segmented_reduce"}
     for seam in cuda:
         assert _same(cuda[seam], plain[seam]), seam
+
+
+#: Whisper-small's non-causal attention calls (b, h, hkv, sq, sk, d): the
+#: encoder over 1,500 frames, cross-attention of a 448-token prefill, and
+#: one decode query over the cached frames
+WHISPER_CASES = [(4, 12, 12, 1500, 1500, 64), (4, 12, 12, 448, 1500, 64),
+                 (4, 12, 12, 1, 1500, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WHISPER_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_whisper_shapes_on_card(cuda_device, shape, dtype):
+    q, k, v = _qkv(shape, dtype, cuda_device, seed=11)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, False).float(),
+                               rtol=0, atol=ATTN_ATOL[dtype])
+
+
+#: one causal prefill layer (b, h, hkv, sq, sk, d) at batch 1:
+#: Qwen2-MoE-A2.7B's 16 heads, the reduced Jamba's 32 over 8 KV heads
+FAMILY_PREFILL_CASES = [(1, 16, 16, 2048, 2048, 128),
+                        (1, 32, 8, 2048, 2048, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAMILY_PREFILL_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_family_prefill_shapes_on_card(cuda_device, shape,
+                                                       dtype):
+    q, k, v = _qkv(shape, dtype, cuda_device, seed=12)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, True).float(),
+                               rtol=0, atol=ATTN_ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_on_card_matches_cpu(cuda_device, arch, dtype):
+    """One layer's dispatch at 2 x 64 tokens (16 groups, assignments
+    dropped): routes equal to the CPU run's, outputs within fp32
+    reassociation (2e-5) or bf16 rounding (6e-2, BF16_ATOL)."""
+    import dataclasses
+    import repro_torch.configs as C
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(C.get_smoke(arch), dtype=dtype)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    layer = moe.MoELayer(cfg, gen, cuda_device)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen,
+                    device=cuda_device).to(getattr(torch, dtype))
+    host = moe.MoELayer(cfg, None, "cpu")
+    host.load_state_dict(layer.state_dict())
+    g, capacity = moe.dispatch_shape(cfg, 128)
+    routes = [moe.route((xx.reshape(128, -1).float() @ p.router).reshape(
+        g, -1, cfg.moe.n_experts), cfg.moe.top_k, capacity)
+        for xx, p in ((x, layer), (x.cpu(), host))]
+    for a, b in zip(routes[0][:3], routes[1][:3]):
+        assert torch.equal(a.cpu(), b)
+    assert not bool(routes[1][2].all())
+    got, aux = moe.moe_ffn(cfg, layer, x)
+    want, aux_host = moe.moe_ffn(cfg, host, x.cpu())
+    atol = 2e-5 if dtype == "float32" else 6e-2
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-5,
+                               atol=atol)
+    torch.testing.assert_close(aux.cpu(), aux_host, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-small",
+                                  "jamba-1.5-large-398b"])
+def test_family_smoke_prefill_on_card_launches_kernels(cuda_device, arch):
+    """Qwen2-MoE one flash launch a layer; Whisper one an encoder layer
+    and two a decoder layer; Jamba's superblock one flash and seven
+    ``ssd_chunk``."""
+    import repro_torch.configs as C
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import api
+    cfg = C.get_smoke(arch)
+    params = api.init(cfg, torch.Generator(cuda_device).manual_seed(0))
+    batch = api.make_batch(cfg, torch.Generator(cuda_device).manual_seed(1),
+                           2, 64)
+    flash_attention.launches = ssd_chunk.launches = 0
+    logits = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    want = {"moe": (cfg.n_layers, 0),
+            "encdec": (cfg.enc_layers + 2 * cfg.n_layers, 0),
+            "hybrid": (1, 7)}[cfg.family]
+    assert (flash_attention.launches, ssd_chunk.launches) == want
+    assert logits.shape == (2, 64, 512)
+    assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())

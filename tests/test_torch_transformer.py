@@ -80,9 +80,11 @@ def _randomize(tree, rng):
 
 
 def _carried(arch: str, dtype: str = "float32", **kw):
+    """Both configs, the reference's parameters (constant leaves
+    randomised) and the port's model carried from them, for any family."""
     cfg_j, cfg_t = _cfgs(arch, dtype, **kw)
     tree = _randomize(jax.tree_util.tree_map(
-        np.asarray, JT.init(cfg_j, jax.random.PRNGKey(0))),
+        np.asarray, japi.init(cfg_j, jax.random.PRNGKey(0))),
         np.random.default_rng(7))
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     return cfg_j, cfg_t, params, model_params_from_reference(tree, cfg_t)
@@ -334,11 +336,11 @@ def _prompts(vocab, n=5, seed=0):
             for _ in range(n)]
 
 
-def _serve_both(dtype: str):
+def _serve_both(dtype: str, arch: str = "qwen2-7b"):
     """The five prompts through the reference's server and the port's,
     on carried weights, with the model and its KV cache in ``dtype``;
     returns both servers and their requests in submission order."""
-    cfg_j, cfg_t = _cfgs("qwen2-7b", dtype)
+    cfg_j, cfg_t = _cfgs(arch, dtype)
     js = jserve.Server(cfg_j, batch=2, max_len=64)
     # The reference's prompt prefill hands ``jnp.asarray(self.pos)`` to a
     # step that JAX dispatches asynchronously and then increments
