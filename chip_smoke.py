@@ -58,15 +58,19 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     their outputs identical;
   9. ssd_kernel  -- ``ssd_chunk`` against ``ssd_chunk_plain`` at the
                     Mamba2-1.3B prefill shape (bf16 and fp32) and the
-                    reference's test shapes, timed beside its bound
-                    (TFLOP/s and share of it);
+                    reference's test shapes, timed beside the bound of
+                    each dtype's route (TFLOP/s and share of it; fp32 on
+                    3xTF32, the fp32 CUDA-core figure logged beside);
  10. prefill     -- ``make_prefill_step`` on Mamba2-1.3B at full width,
                     batch 4 x 2048 tokens, with the kernel and with stage
                     (1) on the plain version: logits and greedy tokens
                     agree, one kernel launch per layer;
  11. consistency -- in fp32 at full width, the last-position logits of a
                     512-token prefill against 512 ``serve_step`` decode
-                    steps;
+                    steps; the fp32 kernels' launches counted in each
+                    (one ``ssd_chunk`` a layer in the prefill), and each
+                    kernel call held to its plain version on its own
+                    inputs;
 12. serve       -- ``Server`` at full width, 4 slots, 8 requests of 4-12
                     prompt tokens and 16 new tokens each;
 13. flash_kernel -- ``flash_attention`` against ``flash_attention_plain``
@@ -92,10 +96,11 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     and cross 448 x 1500 non-causal, decoder 448^2 causal,
                     one decode query over 1500 frames) and at one layer's
                     prefill of Qwen2-MoE-A2.7B and of the reduced Jamba
-                    (causal, 4 x 2048; fp32 and bf16), the encoder's timed
-                    beside its bound, the plain version and SDPA; then
-                    ``ssd_chunk`` against its plain version at the reduced
-                    Jamba's prefill shape, timed beside its bound;
+                    (causal, 4 x 2048; fp32 and bf16), the encoder and the
+                    decode query timed beside their bound, the plain
+                    version and SDPA; then ``ssd_chunk`` against its plain
+                    version at the reduced Jamba's prefill shape (bf16 and
+                    fp32), timed beside its bound;
 20. moe_prefill  -- phase 10 for Qwen2-MoE-A2.7B at full width (24
                     ``flash_attention`` launches), the logits held to a
                     plain run that replays the kernel run's expert routes
@@ -173,6 +178,9 @@ from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
 from repro_torch.kernels import backends as kbk  # noqa: E402
 from repro_torch.kernels.backends import (CudaKernels,  # noqa: E402
                                           TorchKernels)
+# kernel vs plain flash attention, by dtype (the reasons are the constant's)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    ATOL as FLASH_ATOL)
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
@@ -191,6 +199,33 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,      # tensor cores, bf16
               torch.float32: 67e12}        # CUDA cores, fp32
 #: TF32 tensor cores, dense
 TF32_FLOPS = 495e12
+
+
+def route_ms(flops: int, dtype, cuda_cores: bool = False
+             ) -> Tuple[float, str]:
+    """The least time (ms) of ``flops`` useful operations on the route
+    the model kernels take for ``dtype``, and the route: bf16 products
+    are exact in fp32, one pass at the bf16 peak; fp32 operands go as
+    3xTF32 (``csrc/tf32.cuh``), three passes at the TF32 peak.  With
+    ``cuda_cores``, fp32 on the fp32 CUDA cores instead, the route of the
+    port's first fp32 kernels (logged beside the bound)."""
+    if dtype == torch.bfloat16:
+        return flops / PEAK_FLOPS[dtype] * 1e3, "bf16 tensor cores"
+    if cuda_cores:
+        return flops / PEAK_FLOPS[dtype] * 1e3, "fp32 CUDA cores"
+    return 3 * flops / TF32_FLOPS * 1e3, "3xTF32 tensor cores"
+
+
+def _cuda_core_note(bound: Callable[..., Tuple[float, str, str]], *args
+                    ) -> str:
+    """For an fp32 ``bound(*args)`` (``flash_bound``, ``ssd_bound``; the
+    dtype second), the same bound on the fp32 CUDA cores, to log beside
+    the 3xTF32 one."""
+    if args[1] != torch.float32:
+        return ""
+    ms, by, route = bound(*args, cuda_cores=True)
+    return f"; {ms:.4f} ms by {by} on {route}"
+
 
 COUNTERS = ("touch_counts", "iter_counts", "compute_counts",
             "isect_steps", "isect_matches", "advances", "merges")
@@ -262,14 +297,6 @@ ATTN_SHAPES = ((1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
                (1, 8, 1, 128, 256, 32), (2, 2, 2, 64, 192, 128))
 #: the reference's ragged-tail case, non-causal (sk below one key tile)
 ATTN_RAGGED = (1, 1, 1, 64, 40, 32)
-#: kernel vs plain flash attention: in fp32 both take fp32 scores,
-#: softmax and products from the same inputs, so they differ by summation
-#: order only (the reference test's 2e-6, with headroom for another
-#: order).  In bf16 the kernel rounds the softmax weights to bf16 for the
-#: tensor-core PV product (at most about 2^-9 of |v| per weight, as the
-#: reference model's attention rounds them) and then the output once; the
-#: plain version keeps PV in fp32: the reference test's 2e-2.
-FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: (M, K, N, bm, bk, bn, tile density): the reference's BSMM_SHAPES (the
 #: last with an empty A) and its bench's case
 BSMM_SHAPES = ((128, 128, 128, 64, 64, 64, 0.5),
@@ -333,12 +360,17 @@ MOE_DISPATCH_SHAPE = (4, 256)
 #: tests, on outputs of magnitude about 1)
 MOE_DISPATCH_ATOL = 6e-2
 #: Whisper-small's attention calls, ((b, h, hkv, sq, sk, d), causal):
-#: the encoder (timed), the decoder's self- and cross-attention in a
-#: 4 x 448 prefill, and decode's cross-attention of one query
+#: the encoder, the decoder's self- and cross-attention in a 4 x 448
+#: prefill, and decode's cross-attention of one query
 WHISPER_ATTN = (((4, 12, 12, 1500, 1500, 64), False),
                 ((4, 12, 12, 448, 448, 64), True),
                 ((4, 12, 12, 448, 1500, 64), False),
                 ((4, 12, 12, 1, 1500, 64), False))
+#: the Whisper calls phase 19 times, by their index in WHISPER_ATTN
+WHISPER_TIMED = {"encoder": 0, "cross_decode": 3}
+#: launches a timing of those calls: one decode query takes about 0.05
+#: ms, so ten launches are too short a window for a stable mean
+WHISPER_REPS = 100
 #: the reduction of ``jamba-1.5-large-398b`` that runs on one card
 HYBRID_REDUCTION = ("n_layers 72 -> 8 (one superblock: 1 attention, 7 "
                     "Mamba, MoE at odd positions), d_model 8192 -> 4096, "
@@ -1624,42 +1656,53 @@ def ssd_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
     return (batch, seq // cfg.ssm.chunk, cfg.ssm.chunk, nh, p, n)
 
 
-def ssd_bound(shape, dtype) -> Tuple[float, str]:
-    """The least time (ms) of one ``ssd_chunk`` call on an H100 and what
-    sets it: x, a, b and c read once and y (fp32) written once, against
-    the causal half (j <= i) of G once per (b, c) and of Y per head at
-    the peak rate of the input dtype."""
+#: the numbers of a timed record that a record of the other dtype carries
+TIMED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "bound_route")
+
+
+def ssd_flops(shape) -> int:
+    """Operations of the causal half (j <= i) of G once per (b, c) and of
+    Y per head."""
+    B, nc, l, H, P, N = shape
+    tri = l * (l + 1) // 2
+    return 2 * B * nc * tri * N + 2 * B * nc * H * tri * P
+
+
+def ssd_bound(shape, dtype, cuda_cores: bool = False
+              ) -> Tuple[float, str, str]:
+    """The least time (ms) of one ``ssd_chunk`` call on an H100, what
+    sets it and the route: x, a, b and c read once and y (fp32) written
+    once, against ``ssd_flops`` on the route of the input dtype
+    (``route_ms``)."""
     B, nc, l, H, P, N = shape
     es = torch.empty(0, dtype=dtype).element_size()
     nbytes = es * (B * nc * l * H * P + 2 * B * nc * l * N) \
         + 4 * B * H * nc * l + 4 * B * nc * l * H * P
-    tri = l * (l + 1) // 2
-    flops = 2 * B * nc * tri * N + 2 * B * nc * H * tri * P
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops, route = route_ms(ssd_flops(shape), dtype, cuda_cores)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), route
 
 
 def ssd_kernel_flops(shape, dtype) -> int:
     """Operations one ``ssd_chunk`` launch does on the card, as its tiles
     run (not the function's minimum, ``ssd_bound``'s): G over whole 64 x
-    64 tiles j <= i once per (b, c, 8-head group); in bf16 Y over the
-    16 x 16 (i, j) slices the tensor-core kernel computes, three passes
-    each (the split of S), N and P padded to 16; in fp32 Y over whole 64
-    x 64 tiles, N padded to 32 and P to 64."""
+    64 tiles j <= i once per (b, c, 8-head group), N padded to 16 (bf16
+    k16 steps) or 8 (TF32 k8 steps), one pass in bf16 and three in fp32
+    (3xTF32); Y over the 16 x 16 (i, j) slices the kernels compute, P
+    padded to 16, three passes in either dtype (bf16 splits S three
+    ways, fp32 takes 3xTF32)."""
     B, nc, l, H, P, N = shape
     rt = -(-l // 64)                          # row tiles of 64
     tiles = rt * (rt + 1) // 2                # (i, j) tiles with j <= i
     cells = B * nc * -(-H // 8)
-    if dtype == torch.bfloat16:
-        g = cells * tiles * 2 * 64 * 64 * (-(-N // 16) * 16)
-        # off the diagonal 4 x 4 slices a tile; on it 1 + 2 + 3 + 4
-        slices = 16 * (rt * (rt - 1) // 2) + 10 * rt
-        y = B * nc * H * slices * 3 * 2 * 16 * 16 * (-(-P // 16) * 16)
-    else:
-        g = cells * tiles * 2 * 64 * 64 * (-(-N // 32) * 32)
-        y = B * nc * H * tiles * 2 * 64 * 64 * (-(-P // 64) * 64)
+    k = 16 if dtype == torch.bfloat16 else 8
+    g_passes = 1 if dtype == torch.bfloat16 else 3
+    g = g_passes * cells * tiles * 2 * 64 * 64 * (-(-N // k) * k)
+    # off the diagonal 4 x 4 slices a tile; on it 1 + 2 + 3 + 4
+    slices = 16 * (rt * (rt - 1) // 2) + 10 * rt
+    y = B * nc * H * slices * 3 * 2 * 16 * 16 * (-(-P // 16) * 16)
     return g + y
 
 
@@ -1683,7 +1726,7 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
     bound (its TFLOP/s, counting the work it does, and its share of the
     bound) and the plain version's; nvcc's register and spill report of
     the kernel when this process built it.  Returns the bf16 prefill
-    record."""
+    record, the fp32 one under ``fp32``."""
     device = torch.device(device)
     if prefill_shape is None:
         prefill_shape = ssd_shape(TC.get(MODEL_ARCH), PREFILL_BATCH,
@@ -1702,7 +1745,7 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
             if shape != prefill_shape:
                 log(f"ssd_kernel {shape} {dtype}: max abs err {err:.3g}")
                 continue
-            bound, by = ssd_bound(shape, dtype)
+            bound, by, route = ssd_bound(shape, dtype)
             recs[dtype] = {
                 "name": "ssd_chunk", "route": "cuda",
                 "source": KERNEL_INFO["ssd_chunk"][0],
@@ -1711,15 +1754,19 @@ def phase_ssd_kernel(device, prefill_shape=None, shapes=SSD_SHAPES,
                 "ms": _time_ms(lambda: ssd_chunk(*args), device, reps),
                 "plain_ms": _time_ms(lambda: ssd_chunk_plain(*args), device,
                                      reps),
-                "bound_ms": bound, "bound_by": by, "library_ms": None}
+                "bound_ms": bound, "bound_by": by, "bound_route": route,
+                "library_ms": None}
             r = recs[dtype]
             tflops = ssd_kernel_flops(shape, dtype) / r["ms"] * 1e-9
             log(f"ssd_kernel {shape} {dtype} on {card or device}: max abs "
                 f"err {err:.3g}; {r['ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
                 f"{bound / r['ms']:.1%} of the bound {bound:.4f} ms by {by} "
+                f"on {route}{_cuda_core_note(ssd_bound, shape, dtype)} "
                 f"(plain {r['plain_ms']:.4f})")
             del args, got, want
-    return recs[torch.bfloat16]
+    rec = recs[torch.bfloat16]
+    rec["fp32"] = {k: recs[torch.float32][k] for k in TIMED_KEYS}
+    return rec
 
 
 def phase_prefill(device, cfg, batch: int, seq: int, seed: int = 0,
@@ -1899,34 +1946,134 @@ def consistency_config(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
+def decode_launches(cfg, steps: int) -> Dict[str, int]:
+    """Per kernel of ``prefill_launches(cfg)``, its launches in ``steps``
+    ``serve_step`` decode steps on the card: Whisper's cross-attention,
+    one a decoder layer a step; every other decode attention and SSM
+    step is plain torch."""
+    n = cfg.n_layers * steps if cfg.family == "encdec" else 0
+    return {k: n if k == "flash_attention" else 0
+            for k in prefill_launches(cfg)}
+
+
+@contextlib.contextmanager
+def record_calls(cfg, calls: Dict[tuple, tuple]):
+    """``cfg``'s model kernels (``prefill_launches``) run as before for
+    the duration, and the first call of each signature (kernel, shapes,
+    strides, dtypes, other arguments) is kept in ``calls`` as (name,
+    kernel, copies of its arguments, keywords), to be held to the plain
+    version by ``hold_calls`` afterwards."""
+    saved = {n: getattr(PREFILL_KERNELS[n][0], n)
+             for n in prefill_launches(cfg)}
+
+    def recording(name, kernel):
+        def call(*args, **kw):
+            key = (name,) + tuple(
+                (tuple(a.shape), a.stride(), a.dtype)
+                if isinstance(a, torch.Tensor) else a
+                for a in args) + tuple(sorted(kw.items()))
+            if key not in calls:
+                calls[key] = (name, kernel, tuple(
+                    a.detach().clone() if isinstance(a, torch.Tensor)
+                    else a for a in args), dict(kw))
+            return kernel(*args, **kw)
+        return call
+    for n, kernel in saved.items():
+        setattr(PREFILL_KERNELS[n][0], n, recording(n, kernel))
+    try:
+        yield
+    finally:
+        for n, kernel in saved.items():
+            setattr(PREFILL_KERNELS[n][0], n, kernel)
+
+
+def hold_calls(calls: Dict[tuple, tuple], label: str) -> Dict[str, float]:
+    """Each call ``record_calls`` kept, again on its kernel and on the
+    plain version: ``flash_attention`` within FLASH_ATOL of its dtype,
+    ``ssd_chunk`` within SSD_TOL (1 + |want|), same shape, finite.
+    Returns each kernel's largest max abs error."""
+    errs: Dict[str, float] = {}
+    with torch.no_grad():
+        for name, kernel, args, kw in calls.values():
+            got = kernel(*args, **kw)
+            want = PREFILL_KERNELS[name][1](*args, **kw)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            limit = FLASH_ATOL[args[0].dtype] if name == "flash_attention" \
+                else SSD_TOL
+            held = err <= limit if name == "flash_attention" else \
+                bool((diff <= SSD_TOL * (1 + want.float().abs())).all())
+            shapes = [tuple(a.shape) for a in args
+                      if isinstance(a, torch.Tensor)]
+            if got.shape != want.shape or got.dtype != want.dtype or \
+                    not bool(torch.isfinite(got).all()) or not held:
+                raise AssertionError(f"{label}: {name} != plain at {shapes}"
+                                     f" {args[0].dtype} {kw}: max abs err "
+                                     f"{err}")
+            log(f"{label}: {name} at {shapes} {args[0].dtype} {kw} held to "
+                f"its plain version: max abs err {err:.3g} (limit {limit})")
+            errs[name] = max(errs.get(name, 0.0), err)
+            del got, want, diff
+    return errs
+
+
 def phase_consistency(device, cfg, seq: int = 512, seed: int = 4,
-                      card: str = "") -> float:
+                      card: str = "") -> Dict:
     """In fp32, the last-position logits of a ``seq``-token prefill
     against ``seq`` ``serve_step`` decode steps (the reference's
     test_ssd_prefill_matches_decode, for the whole model); Whisper's
     cross cache is primed from the prefill's frames (cast to fp32)
-    first.  Returns the max abs difference."""
+    first.  Every model kernel's count is set to 0 just before the
+    prefill and read just after it (``prefill_launches`` on a CUDA
+    device), and again around the decode steps (``decode_launches``);
+    then each kernel call of both, one a signature, is held to its plain
+    version on a copy of its own inputs (``hold_calls``).  Returns the
+    max abs difference (``max_abs``), the launches of the prefill and of
+    the decode steps and the kernels' largest errors (``held``)."""
     device = torch.device(device)
     cfg = dataclasses.replace(cfg, dtype="float32")
+    want = prefill_launches(cfg)
+    want_decode = decode_launches(cfg, seq)
+    if device.type != "cuda":
+        want = want_decode = {n: 0 for n in want}
     params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
     data = api.make_batch(cfg, torch.Generator(device).manual_seed(seed + 1),
                           1, seq)
     toks = data.pop("tokens")
     data.pop("labels")
     data = {k: v.float() for k, v in data.items()}
-    full = make_prefill_step(cfg, device)(
-        params, dict(data, tokens=toks))[:, -1]
+    calls: Dict[tuple, tuple] = {}
+    for k in MODEL_KERNELS:
+        k.launches = 0
+    with record_calls(cfg, calls):
+        full = make_prefill_step(cfg, device)(
+            params, dict(data, tokens=toks))[:, -1]
+    _sync(device)
+    launches = {k.__name__: k.launches for k in MODEL_KERNELS
+                if k.__name__ in want}
     step = make_serve_step(cfg, device)
     cache = api.init_cache(cfg, 1, seq, dtype=torch.float32, device=device)
     if cfg.family == "encdec":
         with torch.inference_mode():
             cache = encdec_mod.prime_cache(cfg, params, cache,
                                            data["frames"])
+    _sync(device)
+    for k in MODEL_KERNELS:
+        k.launches = 0
     t0 = time.perf_counter()
-    for t in range(seq):
-        last, cache = step(params, cache, toks[:, t], torch.full((1,), t))
+    with record_calls(cfg, calls):
+        for t in range(seq):
+            last, cache = step(params, cache, toks[:, t],
+                               torch.full((1,), t))
     _sync(device)
     decode_s = time.perf_counter() - t0
+    decoded = {k.__name__: k.launches for k in MODEL_KERNELS
+               if k.__name__ in want}
+    del params, cache
+    if launches != want or decoded != want_decode:
+        raise AssertionError(f"consistency {cfg.name}: prefill launched "
+                             f"{launches}, want {want}; decode launched "
+                             f"{decoded}, want {want_decode}")
     v = cfg.vocab
     err = float((full[:, :v] - last[:, :v]).abs().max())
     same = int(full[:, :v].argmax()) == int(last[:, :v].argmax())
@@ -1939,8 +2086,11 @@ def phase_consistency(device, cfg, seq: int = 512, seed: int = 4,
         f"tokens on {card or device}: prefill vs {seq} decode steps max abs "
         f"{err:.3g} (logits |max| {float(full[:, :v].abs().max()):.4g}), "
         f"same greedy token; decode {decode_s:.3f} s ({seq / decode_s:.1f} "
-        f"steps/s, batch 1)")
-    return err
+        f"steps/s, batch 1); launches: prefill {launches}, decode "
+        f"{decoded}")
+    held = hold_calls(calls, f"consistency {cfg.name}")
+    return {"max_abs": err, "launches": launches,
+            "decode_launches": decoded, "held": held}
 
 
 def phase_serve(device, cfg, n_requests: int = 8, batch: int = 4,
@@ -2042,17 +2192,20 @@ def flash_flops(shape, causal: bool = True) -> int:
     return 4 * b * h * d * pairs
 
 
-def flash_bound(shape, dtype, causal: bool = True) -> Tuple[float, str]:
-    """The least time (ms) of one ``flash_attention`` call on an H100 and
-    what sets it: q, k, v read once and o written once, against
-    ``flash_flops`` at the peak rate of the input dtype."""
+def flash_bound(shape, dtype, causal: bool = True,
+                cuda_cores: bool = False) -> Tuple[float, str, str]:
+    """The least time (ms) of one ``flash_attention`` call on an H100,
+    what sets it and the route: q, k, v read once and o written once,
+    against ``flash_flops`` on the route of the input dtype
+    (``route_ms``)."""
     b, h, hkv, sq, sk, d = shape
     es = torch.empty(0, dtype=dtype).element_size()
     nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flash_flops(shape, causal) / PEAK_FLOPS[dtype] * 1e3
+    t_ops, route = route_ms(flash_flops(shape, causal), dtype,
+                            cuda_cores)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), route
 
 
 def _attn_inputs(shape, dtype, device: torch.device, seed: int):
@@ -2069,7 +2222,7 @@ def phase_flash_kernel(device, prefill_shape=None, shapes=ATTN_SHAPES,
     shapes, fp32 and bf16, causal and not, and on the ragged-tail case;
     at the prefill shape (causal, both dtypes) the kernel's time beside
     its bound, the plain version's and SDPA's.  Returns the bf16 causal
-    prefill record."""
+    prefill record, the fp32 one under ``fp32``."""
     device = torch.device(device)
     if prefill_shape is None:
         prefill_shape = attn_shape(TC.get(DENSE_ARCH), PREFILL_BATCH,
@@ -2102,6 +2255,8 @@ def phase_flash_kernel(device, prefill_shape=None, shapes=ATTN_SHAPES,
                  **_flash_times(q, k, v, causal, err, device, reps, card)}
             if dtype == torch.bfloat16:
                 rec = r
+            else:
+                rec["fp32"] = {k: r[k] for k in TIMED_KEYS + ("library_ms",)}
             del q, k, v
     return rec
 
@@ -2111,32 +2266,36 @@ def _flash_times(q, k, v, causal: bool, err: float, device, reps: int,
     """The kernel's time on q, k, v beside its bound, the plain version's
     and SDPA's (top-left causal mask, as the kernel's), logged."""
     shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
-    bound, by = flash_bound(shape, q.dtype, causal)
+    bound, by, route = flash_bound(shape, q.dtype, causal)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     r = {"max_abs_err": err,
          "ms": _time_ms(lambda: flash_attention(q, k, v, causal), device,
                         reps),
          "plain_ms": _time_ms(lambda: flash_attention_plain(q, k, v, causal),
                               device, reps),
-         "bound_ms": bound, "bound_by": by,
+         "bound_ms": bound, "bound_by": by, "bound_route": route,
          "library_ms": _time_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                              enable_gqa=True), device, reps)}
     tflops = flash_flops(shape, causal) / r["ms"] * 1e-9
     log(f"flash_kernel {shape} {q.dtype} causal={causal} on {card or device}"
         f": max abs err {err:.3g}; {r['ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
-        f"{bound / r['ms']:.1%} of the bound {bound:.4f} ms by {by} (plain "
-        f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
+        f"{bound / r['ms']:.1%} of the bound {bound:.4f} ms by {by} on "
+        f"{route}{_cuda_core_note(flash_bound, shape, q.dtype, causal)} "
+        f"(plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f})")
     return r
 
 
-def phase_flash_shapes(device, cases=WHISPER_ATTN, reps: int = 10,
-                       seed: int = 9, card: str = "") -> Dict[str, Dict]:
+def phase_flash_shapes(device, cases=WHISPER_ATTN, timed=WHISPER_TIMED,
+                       reps: int = 10, seed: int = 9, card: str = ""
+                       ) -> Dict[str, Dict]:
     """``flash_attention`` against ``flash_attention_plain`` within
     FLASH_ATOL at each ((b, h, hkv, sq, sk, d), causal) of ``cases`` in
-    bf16 and fp32; the first case timed beside its bound, the plain
-    version's and SDPA's.  Returns the first case's records by dtype."""
+    bf16 and fp32; the cases ``timed`` names (label -> index) timed
+    beside their bound, the plain version's and SDPA's.  Returns their
+    records, label -> dtype -> record."""
     device = torch.device(device)
-    recs = {}
+    labels = {i: label for label, i in timed.items()}
+    recs = {label: {} for label in timed}
     for i, (shape, causal) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _attn_inputs(shape, dtype, device, seed)
@@ -2150,11 +2309,11 @@ def phase_flash_shapes(device, cases=WHISPER_ATTN, reps: int = 10,
                                      f"{dtype} causal={causal}: max abs "
                                      f"err {err}")
             del got, want
-            if i:
+            if i not in labels:
                 log(f"flash_kernel {shape} {dtype} causal={causal}: max abs "
                     f"err {err:.3g}")
                 continue
-            recs["bf16" if dtype == torch.bfloat16 else "fp32"] = \
+            recs[labels[i]]["bf16" if dtype == torch.bfloat16 else "fp32"] = \
                 {"shape": list(shape), "causal": causal,
                  **_flash_times(q, k, v, causal, err, device, reps, card)}
     return recs
@@ -2172,12 +2331,14 @@ def family_attn_cases():
 
 def phase_family_kernels(device, card: str = "", reps: int = 10
                          ) -> Tuple[Dict[str, Dict], Dict]:
-    """Phase 19: ``phase_flash_shapes`` on ``family_attn_cases`` and
-    ``phase_ssd_kernel`` at the reduced Jamba's prefill shape alone.
-    Returns the Whisper encoder's flash records by dtype and Jamba's
-    bf16 ``ssd_chunk`` record."""
-    flash = phase_flash_shapes(device, family_attn_cases(), reps=reps,
-                               card=card)
+    """Phase 19: ``phase_flash_shapes`` on ``family_attn_cases`` (the
+    Whisper calls timed over ``WHISPER_REPS`` launches) and
+    ``phase_ssd_kernel`` at the reduced Jamba's prefill shape alone
+    (``reps`` launches).  Returns the timed Whisper calls' flash
+    records (``WHISPER_TIMED``) and Jamba's ``ssd_chunk`` record (bf16,
+    its fp32 one inside)."""
+    flash = phase_flash_shapes(device, family_attn_cases(),
+                               reps=WHISPER_REPS, card=card)
     ssd = phase_ssd_kernel(device, ssd_shape(hybrid_config(), PREFILL_BATCH,
                                              PREFILL_SEQ), shapes=(),
                            reps=reps, card=card)
@@ -2347,12 +2508,15 @@ def family_plan():
 
 def phase_families(device, card: str, plan=None, batch: int = PREFILL_BATCH,
                    dispatch_shape=MOE_DISPATCH_SHAPE
-                   ) -> Dict[str, Dict[str, int]]:
+                   ) -> Tuple[Dict[str, Dict[str, int]], Dict[str, Dict]]:
     """Phases 20-29 (``family_plan``), one model at a time, the cache
     emptied after each phase: prefill, consistency and serve, and for
     the MoE model one layer's dispatch against the CPU.  Returns each
-    prefill path's kernel launches."""
-    paths = {}
+    path's kernel launches (the bf16 prefill, ``<path>_prefill``; the
+    fp32 consistency prefill, ``<path>_consistency``; Whisper's fp32
+    decode steps, ``<path>_consistency_decode``) and each consistency
+    path's ``phase_consistency`` result."""
+    paths, results = {}, {}
     for path, cfg, seq, cons, cons_seq in plan or family_plan():
         phases = [("prefill", phase_prefill, (cfg, batch, seq)),
                   ("consistency", phase_consistency, (cons, cons_seq)),
@@ -2367,9 +2531,51 @@ def phase_families(device, card: str, plan=None, batch: int = PREFILL_BATCH,
                          card=card)
             if name == "prefill":
                 paths[f"{path}_prefill"] = out["launches"]
+            if name == "consistency":
+                results[f"{path}_consistency"] = out
+                paths[f"{path}_consistency"] = out["launches"]
+                if cfg.family == "encdec":
+                    paths[f"{path}_consistency_decode"] = \
+                        out["decode_launches"]
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
-    return paths
+    return paths, results
+
+
+def attach_model_paths(kernels: List[Dict], paths: Dict[str, Dict[str, int]],
+                       cons: Dict[str, Dict], throughput: Dict[str, int]
+                       ) -> None:
+    """Adds to each kernel record the launches of the model paths
+    (``paths``: path -> kernel -> launches, the consistency paths among
+    them) and of the throughput path.  A record with an ``fp32`` record
+    gets there the launches of the fp32 consistency paths and, per path,
+    the largest error of its kernel calls held to the plain version
+    (``cons``: path -> ``phase_consistency`` result).  Fails if a kernel,
+    or the fp32 route of one, never launched."""
+    first = {"ssd_chunk": "prefill", "flash_attention": "dense_prefill",
+             "block_sparse_matmul": "kernels_bench"}
+    for rec in kernels:
+        name = rec["name"]
+        rec.setdefault("launches_by_path", {first.get(name): rec["launches"]})
+        for path, launches in paths.items():
+            if name in launches:
+                rec["launches_by_path"][path] = launches[name]
+                rec["launches"] += launches[name]
+        rec["launches_by_path"]["throughput"] = throughput[name]
+        rec["launches"] += throughput[name]
+        if "fp32" in rec:
+            fp32 = rec["fp32"]
+            fp32["launches_by_path"] = {
+                p: n[name] for p, n in paths.items()
+                if "consistency" in p and name in n}
+            fp32["launches"] = sum(fp32["launches_by_path"].values())
+            fp32["max_abs_err_by_path"] = {
+                p: c["held"][name] for p, c in cons.items()
+                if name in c["held"]}
+        for r, where in ((rec, "its paths"),
+                         (rec.get("fp32"), "the fp32 consistency paths")):
+            if r is not None and r["launches"] <= 0:
+                raise AssertionError(f"{name} never launched on {where}")
 
 
 def main() -> int:
@@ -2411,7 +2617,7 @@ def main() -> int:
     prefill = phase_prefill("cuda", cfg, PREFILL_BATCH, PREFILL_SEQ, card=smi)
     ssd_rec["launches"] = prefill["launches"]["ssd_chunk"]
     kernels.append(ssd_rec)
-    phase_consistency("cuda", cfg, card=smi)
+    cons = {"consistency": phase_consistency("cuda", cfg, card=smi)}
     phase_serve("cuda", cfg, card=smi)
     flash_rec = phase_flash_kernel("cuda", card=smi)
     bsmm_rec = phase_bsmm_kernel("cuda", card=smi)
@@ -2423,35 +2629,23 @@ def main() -> int:
     flash_rec["launches"] = prefill["launches"]["flash_attention"]
     kernels += [flash_rec, bsmm_rec]
     torch.cuda.empty_cache()
-    phase_consistency("cuda", dense, seq=DENSE_CONSISTENCY_SEQ, card=smi)
+    cons["dense_consistency"] = phase_consistency(
+        "cuda", dense, seq=DENSE_CONSISTENCY_SEQ, card=smi)
     torch.cuda.empty_cache()
     phase_serve("cuda", dense, card=smi)
     torch.cuda.empty_cache()
-    flash_rec["whisper_encoder"], jamba_ssd = _timed(
+    flash_rec["whisper"], jamba_ssd = _timed(
         "family_kernels", smi, phase_family_kernels, "cuda", card=smi)
     ssd_rec["jamba_prefill_shape"] = {
-        k: jamba_ssd[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by")}
+        k: jamba_ssd[k] for k in TIMED_KEYS + ("fp32",)}
     torch.cuda.empty_cache()
     log(f"hybrid: {hybrid_config().name} = {HYBRID_ARCH} with "
         f"{HYBRID_REDUCTION}")
-    families = phase_families("cuda", smi)
-    model_paths = {"ssd_chunk": "prefill", "flash_attention": "dense_prefill",
-                   "block_sparse_matmul": "kernels_bench"}
-    for rec in kernels:
-        rec.setdefault("launches_by_path",
-                       {model_paths.get(rec["name"]): rec["launches"]})
-        for path, launches in families.items():
-            if rec["name"] in launches:
-                rec["launches_by_path"][path] = launches[rec["name"]]
-                rec["launches"] += launches[rec["name"]]
-        n = throughput[rec["name"]]
-        rec["launches_by_path"]["throughput"] = n
-        rec["launches"] += n
-    for rec in kernels:
-        if rec["launches"] <= 0:
-            raise AssertionError(f"{rec['name']} never launched on its "
-                                 f"path")
+    paths, family_cons = phase_families("cuda", smi)
+    cons.update(family_cons)
+    paths.update({p: cons[p]["launches"]
+                  for p in ("consistency", "dense_consistency")})
+    attach_model_paths(kernels, paths, cons, throughput)
     log(f"total {time.perf_counter() - t0:.1f} s on {smi}")
     log(smi)
     log(json.dumps({"kernels": kernels}))

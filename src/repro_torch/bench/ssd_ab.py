@@ -4,8 +4,9 @@
 
 ``DIR`` is another checkout of this repository (the parent commit, for
 example, unpacked with ``git archive`` under the ignored ``build/``).
-``NAME`` is ``ssd_chunk`` (the default), ``block_sparse_matmul``,
-``search``, ``merge_path`` or ``multi_merge_ranks``.  The kernel's source
+``NAME`` is ``ssd_chunk`` (the default), ``flash_attention``,
+``block_sparse_matmul``, ``search``, ``merge_path`` or
+``multi_merge_ranks``.  The kernel's source
 under ``src/repro_torch/kernels/csrc/`` in ``DIR`` and in this tree are
 compiled with the flags of ``kernels/build.py`` and launched through the
 same C interface, each build in a process of its own that imports the
@@ -13,8 +14,13 @@ package of its own checkout, in the order base, this, this, base, so
 both come from one card.  The cases:
 
   * ``ssd_chunk``: the Mamba2-1.3B prefill shape (B 4, nc 8, l 256, H 64,
-    P 64, N 128) in bf16 and fp32, held to ``ssd_chunk_plain`` within
-    2e-4 (1 + |want|);
+    P 64, N 128) in bf16 and fp32, and the reduced Jamba's (H 128) in
+    fp32, held to ``ssd_chunk_plain`` within 2e-4 (1 + |want|);
+  * ``flash_attention``: fp32 at Whisper-small's encoder (4, 12, 12,
+    1500, 1500, 64, non-causal) and decode cross-attention (sq 1 over
+    1,500 frames), and at the Qwen2-7B prefill (4, 28, 4, 2048, 2048,
+    128, causal), then bf16 at Whisper's encoder, held to
+    ``flash_attention_plain`` within 2e-5 (fp32) or 2e-2 (bf16);
   * ``block_sparse_matmul``: ``chip_smoke.py``'s card case (A 8192 x 8192
     in 128 x 128 tiles at 30% tile density, B 8192 x 1024) in fp32 and
     bf16, held to ``block_sparse_matmul_plain`` within 1e-4 sqrt(K)
@@ -42,6 +48,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -52,11 +59,15 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import (block_sparse_matmul_plain, build,
-                                 merge_path, merge_path_plain,
-                                 multi_merge_ranks, multi_merge_ranks_plain,
-                                 search_plain, ssd_chunk_plain)
+                                 flash_attention_plain, merge_path,
+                                 merge_path_plain, multi_merge_ranks,
+                                 multi_merge_ranks_plain, search_plain,
+                                 ssd_chunk_plain)
 from repro_torch.kernels.block_sparse_matmul import _ARGTYPES as BSMM_ARGS
 from repro_torch.kernels.block_sparse_matmul import _DTYPES as BSMM_DTYPES
+from repro_torch.kernels.flash_attention import _ARGTYPES as FLASH_ARGS
+from repro_torch.kernels.flash_attention import _DTYPES as FLASH_DTYPES
+from repro_torch.kernels.flash_attention import ATOL as FLASH_ATOL
 from repro_torch.kernels.merge import _ARGTYPES as MERGE_ARGS
 from repro_torch.kernels.multi_merge import _ARGTYPES as MULTI_ARGS
 from repro_torch.kernels.search import _ARGTYPES as SEARCH_ARGS
@@ -64,7 +75,22 @@ from repro_torch.kernels.ssd_chunk import _ARGTYPES as SSD_ARGS
 from repro_torch.kernels.ssd_chunk import _DTYPES as SSD_DTYPES
 
 SHAPE = (4, 8, 256, 64, 64, 128)
+#: the ssd_chunk cases: (label, shape, dtype)
+SSD_CASES = (("mamba2", SHAPE, torch.bfloat16),
+             ("mamba2", SHAPE, torch.float32),
+             ("jamba", (4, 8, 256, 128, 64, 128), torch.float32))
 SSD_TOL = 2e-4
+#: the flash_attention cases: label -> ((b, h, hkv, sq, sk, d), causal,
+#: dtype)
+FLASH_CASES = {
+    "whisper_encoder fp32": ((4, 12, 12, 1500, 1500, 64), False,
+                             torch.float32),
+    "whisper_cross_decode fp32": ((4, 12, 12, 1, 1500, 64), False,
+                                  torch.float32),
+    "qwen2_7b_prefill fp32": ((4, 28, 4, 2048, 2048, 128), True,
+                              torch.float32),
+    "whisper_encoder bf16": ((4, 12, 12, 1500, 1500, 64), False,
+                             torch.bfloat16)}
 #: (M, K, N, bm, bk, tile density): chip_smoke.BSMM_CARD
 BSMM_CASE = (8192, 8192, 1024, 128, 128, 0.3)
 BSMM_RTOL = 1e-4
@@ -110,25 +136,26 @@ def _check(code: int, name: str) -> None:
 # per kernel: cases of (label, run(lib), plain output, comparison)
 # ---------------------------------------------------------------------- #
 def ssd_cases(lib, gen):
-    """x, a, b, c at SHAPE on the card, as chip_smoke.py makes them."""
+    """x, a, b, c at each of SSD_CASES on the card, as chip_smoke.py makes
+    them."""
     fn = lib.repro_ssd_chunk
     fn.argtypes, fn.restype = list(SSD_ARGS), ctypes.c_int
-    B, nc, l, H, P, N = SHAPE
 
     def randn(*s):
         return torch.randn(s, generator=gen, device="cuda")
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for label, shape, dtype in SSD_CASES:
+        B, nc, l, H, P, N = shape
         x = randn(B, nc, l, H, P).to(dtype)
         a = -randn(B, H, nc, l).abs() * 0.1
         b, c = randn(B, nc, l, N).to(dtype), randn(B, nc, l, N).to(dtype)
         want = ssd_chunk_plain(x, a, b, c)
         y = torch.full(want.shape, float("nan"), device="cuda")
 
-        def run(x=x, a=a, b=b, c=c, y=y):
+        def run(x=x, a=a, b=b, c=c, y=y, shape=shape):
             _check(fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                      y.data_ptr(), B, nc, l, H, P, N,
-                      SSD_DTYPES[x.dtype], _stream()), "ssd_chunk")
+                      y.data_ptr(), *shape, SSD_DTYPES[x.dtype], _stream()),
+                   "ssd_chunk")
             return y
 
         def ok(got, want=want):
@@ -136,7 +163,37 @@ def ssd_cases(lib, gen):
             return float(err.max()), bool((err <= SSD_TOL
                                            * (1 + want.abs())).all())
 
-        yield str(dtype), run, ok
+        yield f"{label} {dtype}", run, ok
+
+
+def flash_cases(lib, gen):
+    """q, k, v at each of FLASH_CASES on the card, standard normal, as
+    chip_smoke.py makes them; contiguous, the output too."""
+    fn = lib.repro_flash_attention
+    fn.argtypes, fn.restype = list(FLASH_ARGS), ctypes.c_int
+    for label, (shape, causal, dtype) in FLASH_CASES.items():
+        b, h, hkv, sq, sk, d = shape
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                   for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+        want = flash_attention_plain(q, k, v, causal).float()
+        o = torch.empty_like(q)
+        strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
+                                          for s in t.stride()[:3]))
+
+        def run(q=q, k=k, v=v, o=o, strides=strides, shape=shape,
+                causal=causal):
+            b, h, hkv, sq, sk, d = shape
+            _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      b, h, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
+                      FLASH_DTYPES[q.dtype], ctypes.addressof(strides),
+                      _stream()), "flash_attention")
+            return o
+
+        def ok(got, want=want, atol=FLASH_ATOL[dtype]):
+            err = float((got.float() - want).abs().max())
+            return err, err <= atol
+
+        yield label, run, ok
 
 
 def bsmm_cases(lib, gen):
@@ -254,7 +311,8 @@ def multi_cases(lib, gen):
                lambda keys=keys, offs=offs: multi_merge_ranks(keys, offs))
 
 
-KERNELS = {"ssd_chunk": ssd_cases, "block_sparse_matmul": bsmm_cases,
+KERNELS = {"ssd_chunk": ssd_cases, "flash_attention": flash_cases,
+           "block_sparse_matmul": bsmm_cases,
            "search": search_cases, "merge_path": merge_cases,
            "multi_merge_ranks": multi_cases}
 

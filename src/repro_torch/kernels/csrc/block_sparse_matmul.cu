@@ -80,6 +80,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;          // 8 warps
@@ -146,106 +148,23 @@ __device__ __forceinline__ uint4 ld8(const __nv_bfloat16* p, int lim,
   return v;
 }
 
-// ---- TF32 split and tensor-core products ---- //
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero: what cvt.rna.tf32.f32 gives for every finite x, as two integer
-// operations on the bits (half of the dropped 13 bits added to the
-// magnitude, then cleared), which cost less than the conversion
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-// hi and lo parts of 4 values as TF32 bit patterns; a bf16 operand (kLo
-// false) is exact in TF32 and has no lo part
-template <bool kLo>
-__device__ __forceinline__ void split4(float4 v, unsigned char* hi,
-                                       unsigned char* lo) {
-  const float x[4] = {v.x, v.y, v.z, v.w};
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    h[e] = kLo ? tf32_rna(x[e]) : __float_as_uint(x[e]);
-    l[e] = kLo ? tf32_rna(x[e] - __uint_as_float(h[e])) : 0u;
-  }
-  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
-  if (kLo) *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
-}
+// ---- TF32 split (tf32.cuh) and tensor-core products ---- //
+using tf32::split4;
 
-// wgmma shared-memory descriptor of a K-major operand in rows of kRowB
-// bytes (128 or 64) with the swizzle of that width: start address,
-// leading byte offset 16, stride byte offset 8 rows, layout 1 (128-byte
-// swizzle) or 2 (64-byte)
-template <int kRowB>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(8 * kRowB >> 4) << 32) |
-         ((uint64_t)(kRowB == 128 ? 1 : 2) << 62);
-}
+using tf32::fence_async_smem;
+using tf32::kmajor_desc;
+using tf32::reg_fence;
+using tf32::swz;
+using tf32::wgmma_commit;
+using tf32::wgmma_fence;
+using tf32::wgmma_tf32;
+using tf32::wgmma_wait;
+
 // the same for an MN-major operand (16-bit types only): 64-element boxes
 // lbo bytes apart, 8-row groups 1024 bytes apart
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-// byte offset of 16-byte chunk q of row r in rows of kRowB bytes under
-// the swizzle of that width (128: chunk ^ row % 8; 64: chunk ^ row / 2 % 4)
-template <int kRowB = 128>
-__device__ __forceinline__ int swz(int r, int q) {
-  return r * kRowB + ((q ^ (kRowB == 128 ? r & 7 : (r >> 1) & 3)) << 4);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// shared-memory writes of the threads, visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// keeps the compiler from touching wgmma's accumulators while it runs
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-#define REPRO_ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), \
-    "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
-    "+f"(d[i + 7])
-
-// D[64 x 128] (+)= A[64 x 8] B[8 x 128], tf32, A and B K-major in shared
-// memory; D is overwritten when accumulate is 0
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
-      : REPRO_ACC8(0), REPRO_ACC8(8), REPRO_ACC8(16), REPRO_ACC8(24),
-        REPRO_ACC8(32), REPRO_ACC8(40), REPRO_ACC8(48), REPRO_ACC8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-// D[64 x 64] (+)= A[64 x 8] B[8 x 64], the same for 64 columns
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-      : REPRO_ACC8(0), REPRO_ACC8(8), REPRO_ACC8(16), REPRO_ACC8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
 }
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16: A K-major, B MN-major
 // (its two 64-column boxes LBO apart) in shared memory

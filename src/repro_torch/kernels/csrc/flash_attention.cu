@@ -59,29 +59,58 @@
 //  * Shared memory: Q, two K and two V tiles of 128 x d bf16: 160 KB at
 //    d = 128, one CTA per SM.
 //
-// fp32: the CUDA-core kernel (namespace cuda_core): one CTA owns 64
-// queries, loops over 64-key tiles staged as fp32 in shared memory, 4 x 4
-// scores and 4 x d/16 outputs per thread; bound by the fp32 CUDA cores
-// (67 TFLOP/s).
+// fp32 (namespace wg32): 3xTF32 on the tensor cores (tf32.cuh), bound by
+// three passes at the TF32 peak (495 TFLOP/s): 0.73 ms at the Qwen2-7B
+// prefill shape and 0.17 ms at Whisper's encoder (4, 12, 12, 1500, 1500,
+// 64), where the fp32 CUDA cores (67 TFLOP/s) would need 1.80 and 0.41.
+//  * wgmma, not mma.sync: a FlashAttention-2-style mma.sync kernel, its
+//    splits in registers, was right but slower on an H100 (0.58 ms at
+//    Whisper's encoder where this one takes 0.48; bench/ssd_ab.py,
+//    PERF.md).  A CTA is two warpgroups of 64
+//    queries; it walks the key tiles (64 keys; 32 at d 128), and each
+//    product takes al bh + ah bl + ah bh a k8 step on one fp32
+//    accumulator.  The carry (m, l, O) stays fp32, and P in (0, 1] is
+//    split like any operand, not rounded to bf16.
+//  * A tile's P V goes to a fresh accumulator, which a rounding FMA adds
+//    to O (O = alpha O + P V).  The tensor cores truncate as they
+//    accumulate; with O itself as the accumulator that bias compounded
+//    over every key tile, to 4.6e-5 (twice the limit) on Whisper's
+//    cross-attention over 1500 frames, whose values share a mean.
+//  * TF32 wgmma reads only K-major operands from shared memory.  K and V
+//    land as they lie (16-byte cp.async into raw tiles, zero fill past
+//    sk) and the CTA splits each tile once into hi and lo planes under
+//    the 128-byte swizzle: K as it lies, V transposed to V^T [d][key].
+//    Q is split once, into registers as the A fragments of S = Q K^T
+//    where they fit (hi and lo at d 32, hi at d 64) and into planes
+//    otherwise (lo at d 64, both at d 128).
+//  * P feeds PV from registers: the accumulator of S's 8 columns j is the
+//    A fragment of key step j with its columns permuted (it holds keys
+//    2t, 2t + 1 where the fragment wants t, t + 4), so the V^T planes
+//    store each 8 keys in that order (0, 2, 4, 6, 1, 3, 5, 7; a sum over
+//    keys does not depend on their order) and P is never shuffled.
+//  * The next tile's raw K and V load during this tile's products.
+//    Shared memory: 131 KB at d 64, 226 KB at d 128 (with Q's planes);
+//    one CTA an SM.  Splitting a tile during the other product's wgmma
+//    or one warpgroup a CTA (two CTAs an SM) were no faster.
 //
 // How both replace the TPU kernel's assumptions:
 //  * a serial grid whose innermost dimension walks the KV blocks while the
 //    carry waits in VMEM scratch: here a CTA (an item, in bf16) loops
 //    over the key tiles itself, the carry in registers.  The threads that
 //    own a row's scores own its outputs, so rescaling by alpha needs no
-//    exchange; the row max is a shuffle among the threads of a row (4 in
-//    the wgmma fragment), and the bf16 kernel sums l per thread and
-//    reduces it once at the end.
+//    exchange; the row max is a shuffle among the 4 threads of a row, and
+//    l is summed per thread and reduced once at the end.
 //  * every KV block visited, masked ones included: with the causal mask a
 //    CTA (an item) stops at the tile that holds its last query.  Skipping
 //    the tiles above the diagonal is exact: there the TPU kernel adds
 //    p = exp(-1e30 - m) = 0 and rescales by exp(0) = 1, since every row
-//    has met key 0 in the first tile.  The bf16 kernel masks only the
-//    tiles that cross the diagonal or the ragged tail.
+//    has met key 0 in the first tile.  Both kernels mask only the tiles
+//    that cross the diagonal or the ragged tail, and an fp32 warpgroup
+//    skips the tiles above its own rows.
 //  * BlockSpec padding of the ragged KV tail: TMA's out-of-bounds fill
 //    loads keys at or past sk (and queries at or past sq) as zeros in the
-//    bf16 kernel, explicit zeroing does it in the fp32 one; the scores of
-//    those keys are masked to -inf (-1e30 in fp32).
+//    bf16 kernel, cp.async's zero fill (and zeroed Q rows) in the fp32
+//    one; the scores of those keys are masked to -inf (-1e30 in fp32).
 //  * an index map that folds head h onto KV head h / group: a CTA reads
 //    its KV head's rows directly; nothing is repeated.
 //  * blocks sized for VMEM: tiles sized for 227 KB of shared memory and
@@ -98,6 +127,8 @@
 #include <stdio.h>
 #include <type_traits>
 
+#include "tf32.cuh"
+
 namespace {
 
 struct Strides {                    // elements; the last dimension is 1
@@ -105,55 +136,78 @@ struct Strides {                    // elements; the last dimension is 1
 };
 
 // --------------------------------------------------------------------- //
-// fp32: CUDA cores
+// fp32: 3xTF32 on the tensor cores (wgmma)
 // --------------------------------------------------------------------- //
-namespace cuda_core {
+namespace wg32 {
 
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kBq = 64;             // queries per CTA
-constexpr int kBk = 64;             // keys per tile
-constexpr int kPad = 4;             // keeps float4 rows aligned, spreads banks
-constexpr float kNegInf = -1e30f;
-static_assert(kBq == kBk, "load_tile stages kBk rows for q, k and v");
+constexpr int kThreads = 256;       // two warpgroups
+constexpr int kBq = 128;            // queries a CTA, 64 a warpgroup
+constexpr float kNegInf = -1e30f;   // the reference's mask value
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// Q's hi and lo parts are wgmma A fragments in registers at d 32; at d 64
+// hi stays in registers and lo in a shared-memory plane, read by wgmma, and
+// at d 128 both are planes (registers would spill beside O and the tile's
+// PV accumulator).
+template <int D>
+struct Cfg {
+  static constexpr int kBk = D == 128 ? 32 : 64;      // keys a tile
+  static constexpr bool kHiRegs = D <= 64, kLoRegs = D <= 32;
+  static constexpr int kLd = D + 4;                   // floats a raw row
+  // TF32 planes, K-major in boxes of 32 columns (128-byte rows) under the
+  // 128-byte swizzle: box b of a plane of R rows starts at b R 128 bytes
+  static constexpr int kQPlane = kBq * D * 4;         // Q hi or lo
+  static constexpr int kKPlane = kBk * D * 4;         // K or V^T hi or lo
+  static constexpr int kRaw = kBk * kLd * 4;          // a raw K or V tile
+  // bytes from a 1024-aligned base: Q hi | Q lo (each where not in
+  // registers) | K hi | K lo | V^T hi | V^T lo | raw K | raw V
+  static constexpr int kQh = 0, kQl = kQh + (kHiRegs ? 0 : kQPlane);
+  static constexpr int kKh = kQl + (kLoRegs ? 0 : kQPlane);
+  static constexpr int kKl = kKh + kKPlane;
+  static constexpr int kVh = kKl + kKPlane, kVl = kVh + kKPlane;
+  static constexpr int kRawK = kVl + kKPlane, kRawV = kRawK + kRaw;
+  static constexpr int kSmem = kRawV + kRaw + 1024;   // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronously; bytes 0 zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// byte offset of the 16-byte chunk at (row r, column c, c % 4 = 0) of a
+// TF32 plane of R rows
+template <int R>
+__device__ __forceinline__ int plane_off(int r, int c) {
+  return (c >> 5) * R * 128 + tf32::swz<128>(r, (c & 31) >> 2);
 }
 
-// rows x D of one [*, D] matrix (row stride ld_g elements) into shared
-// memory rows of ld_s floats; rows at or past n_valid become zeros.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld_s,
-                                          const float* src, int64_t ld_g,
-                                          int row0, int n_valid) {
-  constexpr int kVecs = D / 4;
-  for (int idx = threadIdx.x; idx < kBk * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 4;
-    const int row = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n_valid) v = load4(src + (int64_t)row * ld_g + c);
-    *reinterpret_cast<float4*>(dst + r * ld_s + c) = v;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int B, int H, int Hkv, int sq, int sk, int causal,
-                       float scale, Strides st) {
-  // the thread's output columns: NG groups of VEC contiguous columns
-  constexpr int VEC = D / 16 < 4 ? D / 16 : 4;
-  constexpr int NG = D / (16 * VEC);
-  constexpr int ldq = D + kPad;
-  constexpr int ldp = kBk + kPad;
-  constexpr int kv_floats = kBk * ldq > kBq * ldp ? kBk * ldq : kBq * ldp;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // [kBq][ldq]
-  float* k_s = q_s + kBq * ldq;                   // [kBk][ldq]
-  float* p_s = k_s;                               // [kBq][ldp], after S
-  float* v_s = k_s + kv_floats;                   // [kBk][D]
+__global__ void __launch_bounds__(kThreads, 1)
+attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ o, int B,
+            int H, int Hkv, int sq, int sk, int causal, float scale_log2,
+            Strides st) {
+  using C = Cfg<D>;
+  constexpr int kBk = C::kBk, kLd = C::kLd, kVec = D / 4;
+  extern __shared__ uint8_t smem_wg[];
+  uint8_t* sm = smem_wg + ((1024 - (smem_addr(smem_wg) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(sm);
+  float* raw_k = reinterpret_cast<float*>(sm + C::kRawK);
+  float* raw_v = reinterpret_cast<float*>(sm + C::kRawV);
 
   const int nq = (sq + kBq - 1) / kBq;
   const int bh = (int)(blockIdx.x % (unsigned)(B * H));
@@ -162,153 +216,226 @@ flash_attention_kernel(const float* __restrict__ q,
   const int bi = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = qb * kBq;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
 
-  const float* qg = q + bi * st.qb + h * st.qh + (int64_t)q0 * st.qs;
+  const float* qg = q + bi * st.qb + h * st.qh;
   const float* kg = k + bi * st.kb + hk * st.kh;
   const float* vg = v + bi * st.vb + hk * st.vh;
-  load_tile<D>(q_s, ldq, qg, st.qs, 0, sq - q0);
+
+  // kBk rows of K or V from key j0 as they lie; keys at or past sk zeros
+  auto load_raw = [&](float* dst, const float* src, int64_t ld, int j0) {
+    for (int idx = tid; idx < kBk * kVec; idx += kThreads) {
+      const int r = idx / kVec, c = (idx % kVec) * 4;
+      const bool in = j0 + r < sk;
+      cp_async16(smem_addr(dst + r * kLd + c),
+                 in ? src + (int64_t)(j0 + r) * ld + c : src, in ? 16 : 0);
+    }
+  };
 
   // keys this block needs: all of them, or up to its last query
-  int kv_end = sk;
-  if (causal) {
-    const int last_q = min(q0 + kBq, sq);
-    kv_end = min(sk, last_q);
-  }
+  const int kv_end = causal ? min(sk, min(q0 + kBq, sq)) : sk;
   const int n_tiles = (kv_end + kBk - 1) / kBk;
-
-  float m[4], l[4], acc[4][NG][VEC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[r][g][e] = 0.f;
+  if (n_tiles > 0) {
+    load_raw(raw_k, kg, st.ks, 0);
+    load_raw(raw_v, vg, st.vs, 0);
   }
+  cp_async_commit();
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int j0 = kt * kBk;
-    __syncthreads();                   // the last tile's p_s, v_s consumed
-    load_tile<D>(k_s, ldq, kg, st.ks, j0, sk);
-    load_tile<D>(v_s, D, vg, st.vs, j0, sk);
-    __syncthreads();
-
-    // scores of rows ty + 16 r, keys tx + 16 c
-    float s[4][4] = {};
-    // not unrolled: at d 128, 4 iterations in flight took the kernel past
-    // 128 registers (2 CTAs an SM) and spilled 24 bytes; unroll 1 spills
-    // nothing and costs about 3% (PERF.md)
-#pragma unroll 1
-    for (int d0 = 0; d0 < D; d0 += 4) {
-      float4 qv[4], kv[4];
+  const int wq0 = q0 + 64 * wg;              // the warpgroup's first query
+  const int r0 = wq0 + 16 * (warp % 4) + g, r1 = r0 + 8;   // the thread's
+  const int lim0 = causal ? min(sk, r0 + 1) : sk;  // a row sees keys < lim
+  const int lim1 = causal ? min(sk, r1 + 1) : sk;
+  // Q split into TF32 hi and lo, as the A fragments of the warp's 16 rows
+  // (k8 step kk: rows r0, r1 at columns 8 kk + t, then 8 kk + t + 4);
+  // rows at or past sq zeros
+  uint32_t qh[C::kHiRegs ? D / 8 : 1][4], ql[C::kLoRegs ? D / 8 : 1][4];
+  if constexpr (C::kHiRegs) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * r) * ldq + d0);
+    for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * c) * ldq + d0);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float t = s[r][c];
-          t = fmaf(qv[r].x, kv[c].x, t);
-          t = fmaf(qv[r].y, kv[c].y, t);
-          t = fmaf(qv[r].z, kv[c].z, t);
-          t = fmaf(qv[r].w, kv[c].w, t);
-          s[r][c] = t;
-        }
-    }
-    __syncthreads();                   // k_s read: p_s may overwrite it
-
-    // online softmax per row; the 16 threads of a row are lanes
-    // 16 (ty % 2) .. 16 (ty % 2) + 15 of one warp
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty + 16 * r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + tx + 16 * c;
-        float t = s[r][c] * scale;
-        if (j >= sk || (causal && j > i)) t = kNegInf;
-        s[r][c] = t;
-        mx = fmaxf(mx, t);
+      for (int e = 0; e < 4; ++e) {
+        const int r = e & 1 ? r1 : r0, c = 8 * kk + t + (e & 2) * 2;
+        const float x = r < sq ? qg[(int64_t)r * st.qs + c] : 0.f;
+        uint32_t lo;
+        tf32::split(x, qh[kk][e], lo);
+        if constexpr (C::kLoRegs) ql[kk][e] = lo;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        p_s[(ty + 16 * r) * ldp + tx + 16 * c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = alpha * l[r] + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[r][g][e] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V over this tile's keys
-#pragma unroll 2
-    for (int j = 0; j < kBk; j += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pv[r] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * r) * ldp + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float vv[NG][VEC];
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float* vp = v_s + (j + jj) * D + g * 16 * VEC + tx * VEC;
-          if constexpr (VEC == 4) {
-            const float4 t = *reinterpret_cast<const float4*>(vp);
-            vv[g][0] = t.x; vv[g][1] = t.y; vv[g][2] = t.z; vv[g][3] = t.w;
-          } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) vv[g][e] = vp[e];
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float p = jj == 0 ? pv[r].x : jj == 1 ? pv[r].y
-                        : jj == 2 ? pv[r].z : pv[r].w;
-#pragma unroll
-          for (int g = 0; g < NG; ++g)
-#pragma unroll
-            for (int e = 0; e < VEC; ++e)
-              acc[r][g][e] = fmaf(p, vv[g][e], acc[r][g][e]);
-        }
+  }
+  if constexpr (!C::kLoRegs) {
+    // Q's lo part, and its hi part where not in registers, as TF32 planes
+    for (int idx = tid; idx < kBq * kVec; idx += kThreads) {
+      const int r = idx / kVec, c = (idx % kVec) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < sq)
+        x = *reinterpret_cast<const float4*>(qg + (int64_t)(q0 + r) * st.qs +
+                                             c);
+      const int off = plane_off<kBq>(r, c);
+      if constexpr (C::kHiRegs) {
+        uint32_t hi, lo[4];
+        tf32::split(x.x, hi, lo[0]);
+        tf32::split(x.y, hi, lo[1]);
+        tf32::split(x.z, hi, lo[2]);
+        tf32::split(x.w, hi, lo[3]);
+        *reinterpret_cast<uint4*>(sm + C::kQl + off) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      } else {
+        tf32::split4<true>(x, sm + C::kQh + off, sm + C::kQl + off);
       }
     }
   }
+  float acc[D / 2];                          // O, in wgmma's layout
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // log2 units
 
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = it * kBk;
+    cp_async_wait_all();
+    __syncthreads();               // raw tile in; the last tile's products
+                                   // have read the planes
+    // split into TF32 planes: K as it lies; V transposed to V^T [d][key],
+    // each 8 keys' order permuted (positions 0-3 keys 0, 2, 4, 6, then
+    // 1, 3, 5, 7) to match P's fragments below
+    for (int idx = tid; idx < kBk * kVec; idx += kThreads) {
+      const int r = idx / kVec, c = (idx % kVec) * 4;
+      const int off = plane_off<kBk>(r, c);
+      tf32::split4<true>(*reinterpret_cast<const float4*>(raw_k + r * kLd + c),
+                         sm + C::kKh + off, sm + C::kKl + off);
+    }
+    for (int idx = tid; idx < D * (kBk / 4); idx += kThreads) {
+      const int d = idx % D, qc = idx / D;   // chunk qc of V^T's row d
+      const float* vc = raw_v + (8 * (qc >> 1) + (qc & 1)) * kLd + d;
+      const int off = plane_off<D>(d, 4 * qc);
+      tf32::split4<true>(make_float4(vc[0], vc[2 * kLd], vc[4 * kLd],
+                                     vc[6 * kLd]),
+                         sm + C::kVh + off, sm + C::kVl + off);
+    }
+    tf32::fence_async_smem();
+    __syncthreads();               // planes written; the raw tiles read
+    if (it + 1 < n_tiles) {
+      load_raw(raw_k, kg, st.ks, j0 + kBk);
+      load_raw(raw_v, vg, st.vs, j0 + kBk);
+    }
+    cp_async_commit();
+    // a warpgroup skips a tile with no query of its own in range, or
+    // whose keys all lie above its rows (exact: there p = 0, alpha = 1)
+    if (wq0 >= sq || (causal && j0 > wq0 + 63)) continue;
+
+    // S = Q K^T, 64 x kBk a warpgroup: al bh + ah bl + ah bh a k8 step
+    float sc[kBk / 2];
+    tf32::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t ko = (kk >> 2) * kBk * 128 + (kk & 3) * 32;
+      const uint32_t qo = (kk >> 2) * kBq * 128 + wg * 64 * 128 +
+                          (kk & 3) * 32;
+      const uint64_t bh = tf32::kmajor_desc<128>(sb + C::kKh + ko);
+      const uint64_t bl = tf32::kmajor_desc<128>(sb + C::kKl + ko);
+      if constexpr (C::kLoRegs)
+        tf32::wgmma_tf32_rs(sc, ql[kk], bh, kk > 0);
+      else
+        tf32::wgmma_tf32(sc, tf32::kmajor_desc<128>(sb + C::kQl + qo), bh,
+                         kk > 0);
+      if constexpr (C::kHiRegs) {
+        tf32::wgmma_tf32_rs(sc, qh[kk], bl, 1);
+        tf32::wgmma_tf32_rs(sc, qh[kk], bh, 1);
+      } else {
+        const uint64_t ah = tf32::kmajor_desc<128>(sb + C::kQh + qo);
+        tf32::wgmma_tf32(sc, ah, bl, 1);
+        tf32::wgmma_tf32(sc, ah, bh, 1);
+      }
+    }
+    tf32::wgmma_commit();
+    tf32::wgmma_wait<0>();
+    tf32::reg_fence(sc);
+
+    // online softmax: sc[4j + e] is row r0 (e < 2) or r1, key j0 + 8j +
+    // 2t + e % 2; a row's 4 threads are lanes 4g .. 4g + 3
+    const bool edge = j0 + kBk > sk || (causal && j0 + kBk - 1 > wq0);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < kBk / 2; ++i) {
+      const int e = i & 3;
+      float x = sc[i] * scale_log2;
+      if (edge && j0 + 8 * (i >> 2) + 2 * t + (e & 1) >= (e < 2 ? lim0 : lim1))
+        x = kNegInf;
+      sc[i] = x;
+      if (e < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBk / 2; ++i) {
+      sc[i] = ex2(sc[i] - ((i & 3) < 2 ? mn0 : mn1));
+      if ((i & 3) < 2) sum0 += sc[i];
+      else sum1 += sc[i];
+    }
+    l0 = l0 * a0 + sum0;                     // summed per thread
+    l1 = l1 * a1 + sum1;
+
+    // O = alpha O + P V, P V in a fresh accumulator a tile (the tensor
+    // cores' accumulation truncates: chained over every key tile its bias
+    // grew with sk; a tile's sum is added to O by a rounding FMA).  The
+    // accumulator of S's 8 columns j is the A fragment of key step j with
+    // its columns permuted (column t is key 2t, t + 4 is key 2t + 1), the
+    // order V^T's planes hold
+    uint32_t ph[kBk / 8][4], pl[kBk / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+      tf32::split(sc[4 * j], ph[j][0], pl[j][0]);
+      tf32::split(sc[4 * j + 2], ph[j][1], pl[j][1]);
+      tf32::split(sc[4 * j + 1], ph[j][2], pl[j][2]);
+      tf32::split(sc[4 * j + 3], ph[j][3], pl[j][3]);
+    }
+    float pv[D / 2];
+    tf32::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+      const uint32_t vo = (j >> 2) * D * 128 + (j & 3) * 32;
+      const uint64_t bh = tf32::kmajor_desc<128>(sb + C::kVh + vo);
+      tf32::wgmma_tf32_rs(pv, pl[j], bh, j > 0);
+      tf32::wgmma_tf32_rs(pv, ph[j], tf32::kmajor_desc<128>(sb + C::kVl + vo),
+                          1);
+      tf32::wgmma_tf32_rs(pv, ph[j], bh, 1);
+    }
+    tf32::wgmma_commit();
+    tf32::wgmma_wait<0>();
+    tf32::reg_fence(pv);
+    tf32::reg_fence(ph);
+    tf32::reg_fence(pl);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      acc[i] = fmaf(acc[i], (i & 3) < 2 ? a0 : a1, pv[i]);
+  }
+
+  // a row's l is spread over its 4 threads; a row with no key gives 0
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
+  const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
   float* og = o + bi * st.ob + h * st.oh;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty + 16 * r;
-    if (i >= sq) continue;
-    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);  // fully masked: 0
-    float* orow = og + (int64_t)i * st.os;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        orow[g * 16 * VEC + tx * VEC + e] = acc[r][g][e] * inv;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (r0 < sq)
+      *reinterpret_cast<float2*>(og + (int64_t)r0 * st.os + c) =
+          make_float2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (r1 < sq)
+      *reinterpret_cast<float2*>(og + (int64_t)r1 * st.os + c) =
+          make_float2(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
   }
 }
 
@@ -316,23 +443,18 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int sq, int sk, int causal, float scale,
            const Strides& st, cudaStream_t stream) {
-  constexpr int ldq = D + kPad;
-  constexpr int ldp = kBk + kPad;
-  constexpr int kv_floats = kBk * ldq > kBq * ldp ? kBk * ldq : kBq * ldp;
-  const size_t smem = (size_t)(kBq * ldq + kv_floats + kBk * D) *
-                      sizeof(float);
+  using C = Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (int64_t)B * H * ((sq + kBq - 1) / kBq);
-  flash_attention_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  attn_kernel<D><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, B, H,
-      Hkv, sq, sk, causal, scale, st);
+      Hkv, sq, sk, causal, scale * 1.4426950408889634f, st);
   return (int)cudaGetLastError();
 }
 
-}  // namespace cuda_core
+}  // namespace wg32
 
 // --------------------------------------------------------------------- //
 // bf16: wgmma fed by TMA, warp-specialised
@@ -1008,8 +1130,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   return by_head_dim(d, [&](auto D) {
-    return cuda_core::launch<decltype(D)::value>(q, k, v, o, B, H, Hkv, sq,
-                                                 sk, causal, scale, st, s);
+    return wg32::launch<decltype(D)::value>(q, k, v, o, B, H, Hkv, sq, sk,
+                                            causal, scale, st, s);
   });
 }
 

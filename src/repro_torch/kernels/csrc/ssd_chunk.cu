@@ -73,17 +73,41 @@
 //    threads and at most 128 registers a thread: 2 CTAs, 16 warps, per
 //    SM at l = 256.
 //
-// fp32 (namespace cuda_core): the CUDA-core kernel of the first port, kept
-// as it was (its scan of a aside, now warp_cumsum) so fp32 prefill stays
-// at fp32 FMA accuracy: one CTA per
-// (b, c, 64-row tile, 8 heads) keeps its G rows in shared memory and
-// multiplies 64 x 64 tiles staged as fp32, 4 x 4 outputs a thread.
+// fp32 (namespace tc32): 3xTF32 on the tensor cores (tf32.cuh), on the
+// bf16 kernel's skeleton: the same balanced pairs, G kept in shared
+// memory in fp32 as accumulator fragments, S built in registers, the
+// cp.async ring for X and the 16-byte y stores.
+//  * Both products are mma.sync m16n8k8 TF32, each operand split into hi
+//    and lo and a product taken as al bh + ah bl + ah bh (al bl dropped)
+//    on one fp32 accumulator: about 2^-21 of a product.  One TF32 pass
+//    (2^-11), or two that round one operand of a product once, miss the
+//    2e-4 tolerance by 20 to 270 times where y is near 0
+//    (tests/test_torch_ssd_numerics.py emulates them on the CPU).
+//  * C, B and X land as they lie (16-byte cp.async, rows 272 bytes apart,
+//    which keeps ldmatrix and the X fragment loads free of bank
+//    conflicts) and every warp splits its fragments in registers as they
+//    load: hi and lo planes would double what the warps read from shared
+//    memory.  C and B come by ldmatrix (b16 rows of 16 bytes carry fp32
+//    words intact); X's B fragment by two 4-byte loads per n8 tile.
+//  * S = G o L is built 16 columns at a time as in bf16, now two k8 steps
+//    of 8: the m16n8 accumulator layout holds columns (2t, 2t + 1) where
+//    the k8 A fragment wants (t, t + 4), so X's fragment takes rows 2t
+//    and 2t + 1 of the step instead (the sum over j does not depend on
+//    its order), and S is split in registers, never shuffled.
+//  * The ring's fp32 tiles are twice bf16's: 68 KB for X (or C and B),
+//    64 KB for G and 8 KB for cum at l = 256, so one CTA of 8 warps an SM
+//    (bf16: two); 212 KB at l = 512.
+//  * Bound: three TF32 passes of the causal half of G and Y are 27 GFLOP
+//    at the Mamba2-1.3B prefill shape, 0.054 ms at the TF32 peak (495
+//    TFLOP/s), under the 279 MB the function reads and writes once in
+//    fp32 (0.083 ms): bytes, as in bf16 (on the fp32 CUDA cores, 67
+//    TFLOP/s, the operations alone would take 0.133 ms).
 //
 // How both replace the TPU kernel's assumptions:
 //  * one whole (b, h, c) cell in VMEM (G and L are 256 x 256 fp32, 256 KB
 //    each, over the 227 KB a CTA may have): a CTA owns 64-row tiles of
 //    one chunk and keeps only G's rows of a tile in shared memory; S never
-//    leaves registers (bf16) or moves through 64 x 64 tiles (fp32).
+//    leaves registers.
 //  * the full l x l products: column tiles j <= i only.
 //  * G recomputed per head: G has no head index (one B/C group), so a CTA
 //    computes its G rows once and loops over 8 heads.
@@ -94,11 +118,13 @@
 //    entries whose exp could overflow never enter a product.  The decay
 //    is never factored as exp(cum[i] - r) exp(r - cum[j]), which
 //    overflows under strong decay.
-//  * a serial grid: CTAs are independent (balanced pairs in bf16; the
-//    row tiles with the most column tiles first in fp32).
+//  * a serial grid: CTAs are independent, each a balanced pair of row
+//    tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -145,174 +171,6 @@ __device__ __forceinline__ void warp_cumsum(const float* __restrict__ ab,
     }
   }
 }
-
-// --------------------------------------------------------------------- //
-// fp32: CUDA cores
-// --------------------------------------------------------------------- //
-namespace cuda_core {
-
-constexpr int kThreads = 256;       // 16 x 16; each owns a 4 x 4 block
-constexpr int kTile = 64;           // rows i, columns j and p per tile
-constexpr int kNTile = 32;          // state columns per step of G
-constexpr int kHeadsPerCta = 8;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                 const T* __restrict__ b, const T* __restrict__ c,
-                 float* __restrict__ y, int B, int nc, int l, int H, int P,
-                 int N) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int n_row_tiles = (l + kTile - 1) / kTile;
-  const int l_pad = n_row_tiles * kTile;
-  const int ld_g = l_pad + 1;                  // odd: conflict-free columns
-  float* g_s = smem;                           // [kTile][ld_g]
-  float* cum_s = g_s + kTile * ld_g;           // [l_pad]
-  float* s_t = cum_s + l_pad;                  // [kTile j][kTile i]
-  float* x_s = s_t + kTile * kTile;            // [kTile j][kTile p]
-  float* c_s = s_t;                            // [kTile][kNTile + 1], G only
-  float* b_s = x_s;                            // [kTile][kNTile + 1], G only
-
-  const int n_groups = (H + kHeadsPerCta - 1) / kHeadsPerCta;
-  const int cells = B * nc * n_groups;
-  const int it = n_row_tiles - 1 - (int)(blockIdx.x / cells);
-  int rem = (int)(blockIdx.x % cells);
-  const int hg = rem % n_groups;
-  rem /= n_groups;
-  const int ci = rem % nc;
-  const int bi = rem / nc;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int i0 = it * kTile;
-  const int64_t cell = (int64_t)bi * nc + ci;
-
-  // ---- G rows i0 .. i0 + 63, columns 0 .. i0 + 63 -------------------------
-  const T* cb = c + cell * l * N;
-  const T* bb = b + cell * l * N;
-  for (int jt = 0; jt <= it; ++jt) {
-    const int j0 = jt * kTile;
-    float acc[4][4] = {};
-    for (int n0 = 0; n0 < N; n0 += kNTile) {
-      for (int idx = tid; idx < kTile * kNTile; idx += kThreads) {
-        const int r = idx / kNTile, k = idx % kNTile, n = n0 + k;
-        const int gi = i0 + r, gj = j0 + r;
-        c_s[r * (kNTile + 1) + k] =
-            (gi < l && n < N) ? to_f32(cb[(int64_t)gi * N + n]) : 0.f;
-        b_s[r * (kNTile + 1) + k] =
-            (gj < l && n < N) ? to_f32(bb[(int64_t)gj * N + n]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kNTile; ++k) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = c_s[(ty + 16 * r) * (kNTile + 1) + k];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bv[q] = b_s[(tx + 16 * q) * (kNTile + 1) + k];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(cv[r], bv[q], acc[r][q]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        g_s[(ty + 16 * r) * ld_g + j0 + tx + 16 * q] = acc[r][q];
-  }
-
-  // ---- per head: cumsum of a, then Y = (G o L) X over column tiles ------
-  const int j_end = i0 + kTile;
-  for (int hh = 0; hh < kHeadsPerCta; ++hh) {
-    const int h = hg * kHeadsPerCta + hh;
-    if (h >= H) break;
-    __syncthreads();        // G written; the last head's tiles consumed
-    if (tid < 32)
-      warp_cumsum(a + (((int64_t)bi * H + h) * nc + ci) * l, l, j_end, cum_s,
-                  tid);
-    __syncthreads();
-    for (int p0 = 0; p0 < P; p0 += kTile) {
-      float acc[4][4] = {};
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * kTile;
-        for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
-          const int jl = idx / kTile, il = idx % kTile;
-          const int gi = i0 + il, gj = j0 + jl;
-          float v = 0.f;
-          if (gj <= gi && gi < l)          // never exp() above the diagonal
-            v = g_s[il * ld_g + gj] * expf(cum_s[gi] - cum_s[gj]);
-          s_t[jl * kTile + il] = v;
-        }
-        for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
-          const int jl = idx / kTile, pl = idx % kTile;
-          const int gj = j0 + jl, p = p0 + pl;
-          x_s[jl * kTile + pl] =
-              (gj < l && p < P)
-                  ? to_f32(x[((cell * l + gj) * H + h) * (int64_t)P + p])
-                  : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int jl = 0; jl < kTile; ++jl) {
-          const float4 s4 =
-              *reinterpret_cast<const float4*>(&s_t[jl * kTile + ty * 4]);
-          const float4 x4 =
-              *reinterpret_cast<const float4*>(&x_s[jl * kTile + tx * 4]);
-          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(sv[r], xv[q], acc[r][q]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int gi = i0 + ty * 4 + r;
-        if (gi >= l) continue;
-        float* yrow = y + ((cell * l + gi) * H + h) * (int64_t)P;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = p0 + tx * 4 + q;
-          if (p < P) yrow[p] = acc[r][q];
-        }
-      }
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* a, const void* b, const void* c,
-           void* y, int B, int nc, int l, int H, int P, int N,
-           cudaStream_t stream) {
-  const int n_row_tiles = (l + kTile - 1) / kTile;
-  const int l_pad = n_row_tiles * kTile;
-  const size_t smem =
-      (size_t)(kTile * (l_pad + 1) + l_pad + 2 * kTile * kTile) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_groups = (H + kHeadsPerCta - 1) / kHeadsPerCta;
-  const int64_t blocks = (int64_t)n_row_tiles * B * nc * n_groups;
-  ssd_chunk_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const T*)x, (const float*)a, (const T*)b, (const T*)c, (float*)y, B,
-      nc, l, H, P, N);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace cuda_core
 
 // --------------------------------------------------------------------- //
 // bf16: tensor cores
@@ -731,6 +589,374 @@ int launch(const void* x, const void* a, const void* b, const void* c,
 
 }  // namespace tc
 
+// --------------------------------------------------------------------- //
+// fp32: 3xTF32 on the tensor cores
+// --------------------------------------------------------------------- //
+namespace tc32 {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::smem_addr;
+
+constexpr int kGroups = 4;               // row groups of 16 rows
+constexpr int kSlots = 2;                // heads in flight at once
+constexpr int kWarps = kGroups * kSlots; // warp w: group w % 4, slot w / 4
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kGroups;      // rows i of a row tile
+constexpr int kCols = 64;                // columns j of a column tile
+constexpr int kWide = 64;                // p of a chunk of Y; n of a G step
+constexpr int kLd = kWide + 4;           // staged row: 272 B apart
+constexpr int kTileBytes = kCols * kLd * 4;       // one staged 64 x 64 tile
+constexpr int kStages = 2;               // X ring, kSlots tiles a stage
+constexpr int kStageBytes = kSlots * kTileBytes;
+constexpr int kHeads = 8;                // heads of a CTA, one G for all
+constexpr int kSlices = kCols / 16;      // 16-column slices of a tile
+constexpr int kGTile = kSlices * 32 * 8; // floats of one group's G tile
+static_assert(kRows == kCols, "column tile jt <= row tile it");
+static_assert(kStages * kSlots == 4, "G double-buffers its C and B chunks");
+
+// Rows [0, 64) and columns [0, 64) of a row-major fp32 matrix at src (row
+// stride ld elements) into a [64][kLd] tile at dst, rows >= nr and
+// columns >= ncols as zeros.  vec: 16-byte cp.async (src and ld on 4
+// elements, ncols a multiple of 4); else plain loads and stores.
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const float* src, int64_t ld,
+                                          int nr, int ncols, bool vec) {
+  constexpr int kChunks = kWide / 4;
+  for (int idx = threadIdx.x; idx < kCols * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, k = (idx % kChunks) * 4;
+    unsigned char* d = dst + (r * kLd + k) * 4;
+    if (vec) {
+      const bool in = r < nr && k < ncols;
+      cp_async16(smem_addr(d), in ? src + r * ld + k : src, in ? 16 : 0);
+    } else {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (r < nr && k + e < ncols) ? src[r * ld + k + e] : 0.f;
+      *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// Y += (G o L) X over one 64-column tile, for the warp's 16 rows (r0 and
+// r0 + 8 in the tile are the thread's): S is built in registers 16
+// columns at a time, as two k8 steps, split into TF32 hi and lo and
+// multiplied with the tile's kNp 16-column groups of X in 3xTF32.  g_t:
+// the warp's G fragments of the tile plus lane * 8; cum_j: cum at the
+// tile's first column; xs: the X tile, as it lies.  kDiag: the diagonal
+// tile, where a warp takes only the n_slices slices that reach its rows
+// and L is masked above the diagonal; off it every slice is whole.
+template <int kNp, bool kDiag>
+__device__ __forceinline__ void y_tile(float (&acc)[8][4],
+                                       const float* g_t, const float* cum_j,
+                                       float cum_i0, float cum_i1, int r0,
+                                       int n_slices, const float* xs,
+                                       int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < kSlices; ++kk) {
+    if (kDiag && kk >= n_slices) break;
+    const float4 ga = *reinterpret_cast<const float4*>(g_t + kk * 256);
+    const float4 gb = *reinterpret_cast<const float4*>(g_t + kk * 256 + 4);
+    const int j = 16 * kk + 2 * t;             // columns j, j+1, j+8, j+9
+    const float2 ca = *reinterpret_cast<const float2*>(cum_j + j);
+    const float2 cc = *reinterpret_cast<const float2*>(cum_j + j + 8);
+    // exponents cum[i] - cum[j] at (row, column) (g, j), (g, j+1),
+    // (g+8, j), (g+8, j+1), then the same at j + 8
+    float e[8] = {cum_i0 - ca.x, cum_i0 - ca.y, cum_i1 - ca.x,
+                  cum_i1 - ca.y, cum_i0 - cc.x, cum_i0 - cc.y,
+                  cum_i1 - cc.x, cum_i1 - cc.y};
+    if (kDiag) {
+      // above the diagonal the exponent is -inf (0xff800000), so exp is
+      // only ever taken of arguments <= 0 and gives 0 there
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (j + (q & 1) + (q & 4 ? 8 : 0) > r0 + (q & 2 ? 8 : 0))
+          e[q] = __uint_as_float(0xff800000u);
+    }
+    // __expf, as the bf16 kernel takes it (tests/test_torch_ssd_numerics.py
+    // holds its error bound to the tolerance)
+    const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+    float sv[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) sv[q] = gv[q] * __expf(e[q]);
+    // step h: columns 16 kk + 8 h ..; its m16n8 accumulator is the k8 A
+    // fragment with columns permuted (column t is j = 2t, t + 4 is 2t +
+    // 1), so X's B fragment takes rows 2t and 2t + 1 of the step
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t ah[4], al[4];
+      tf32::split(sv[4 * h], ah[0], al[0]);       // row g,     j 2t
+      tf32::split(sv[4 * h + 2], ah[1], al[1]);   // row g + 8, j 2t
+      tf32::split(sv[4 * h + 1], ah[2], al[2]);   // row g,     j 2t + 1
+      tf32::split(sv[4 * h + 3], ah[3], al[3]);   // row g + 8, j 2t + 1
+      const float* xr = xs + (16 * kk + 8 * h + 2 * t) * kLd + g;
+      uint32_t bh[2 * kNp][2], bl[2 * kNp][2];
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNp; ++nt) {
+        tf32::split(xr[8 * nt], bh[nt][0], bl[nt][0]);
+        tf32::split(xr[kLd + 8 * nt], bh[nt][1], bl[nt][1]);
+      }
+      // part by part: 2 kNp independent accumulators between dependent mma
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNp; ++nt)
+        tf32::mma(acc[nt], al, bh[nt][0], bh[nt][1]);
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNp; ++nt)
+        tf32::mma(acc[nt], ah, bl[nt][0], bl[nt][1]);
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNp; ++nt)
+        tf32::mma(acc[nt], ah, bh[nt][0], bh[nt][1]);
+    }
+  }
+}
+
+// y_tile for a chunk of n_np (1 to 4) 16-column groups of X
+template <bool kDiag>
+__device__ __forceinline__ void y_tile_n(int n_np, float (&acc)[8][4],
+                                         const float* g_t, const float* cum_j,
+                                         float cum_i0, float cum_i1, int r0,
+                                         int n_slices, const float* xs,
+                                         int lane) {
+  switch (n_np) {
+    case 4: y_tile<4, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                             xs, lane); break;
+    case 3: y_tile<3, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                             xs, lane); break;
+    case 2: y_tile<2, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                             xs, lane); break;
+    default: y_tile<1, kDiag>(acc, g_t, cum_j, cum_i0, cum_i1, r0, n_slices,
+                              xs, lane);
+  }
+}
+
+// vec bits: 1 x by cp.async, 2 b and c by cp.async, 4 y by float4 stores
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_chunk_tc32(const float* __restrict__ x, const float* __restrict__ a,
+               const float* __restrict__ b, const float* __restrict__ c,
+               float* __restrict__ y, int nc, int l, int H, int P, int N,
+               int vec) {
+  extern __shared__ float4 smem4[];
+  const int n_row_tiles = (l + kRows - 1) / kRows;
+  const int l_pad = n_row_tiles * kRows;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
+  // G: [group][column tile][slice][lane][8], the accumulator fragments
+  float* g_s = reinterpret_cast<float*>(ring + kStages * kStageBytes);
+  float* cum_s = g_s + kGroups * n_row_tiles * kGTile;  // [kHeads][l_pad]
+
+  const int n_pairs = (n_row_tiles + 1) / 2;
+  const int n_groups = (H + kHeads - 1) / kHeads;
+  const int pair = (int)(blockIdx.x % n_pairs);
+  const int rem = (int)(blockIdx.x / n_pairs);
+  const int hg = rem % n_groups;
+  const int64_t cell = rem / n_groups;                   // b * nc + c
+  const int bi = (int)(cell / nc), ci = (int)(cell % nc);
+  const int heads = min(kHeads, H - hg * kHeads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp % kGroups, slot = warp / kGroups;
+  const int g = lane / 4, t = lane % 4;
+  const bool vec_x = vec & 1, vec_bc = vec & 2, vec_y = vec & 4;
+
+  // cumsum of a per head, over the whole chunk (zeros past l)
+  for (int hh = warp; hh < heads; hh += kWarps)
+    warp_cumsum(a + (((int64_t)bi * H + hg * kHeads + hh) * nc + ci) * l, l,
+                l_pad, cum_s + hh * l_pad, lane);
+
+  const float* cb = c + cell * l * N;
+  const float* bb = b + cell * l * N;
+  const int n_pc = (P + kWide - 1) / kWide;
+  const int n_nk = max(1, (N + kWide - 1) / kWide);
+  float* g_w = g_s + grp * n_row_tiles * kGTile;
+  const int r0 = grp * 16 + g;             // the thread's rows: r0, r0 + 8
+
+  for (int half = 0; half < 2; ++half) {
+    const int it = half == 0 ? n_row_tiles - 1 - pair : pair;
+    if (half == 1 && it == n_row_tiles - 1 - pair) break;
+    const int i0 = it * kRows;
+    const int ncol = it + 1;
+
+    // ---- G rows i0 .. i0 + 63, column tiles 0 .. it --------------------
+    // step k is (column tile k / n_nk, state chunk k % n_nk); its C and B
+    // chunks load into ring tiles 2 (k & 1) and 2 (k & 1) + 1 while step
+    // k - 1 computes.  Warp w takes its group's rows and the 16-column
+    // groups 2 slot, 2 slot + 1 of the tile; both operands are split as
+    // their fragments load.
+    const int gsteps = ncol * n_nk;
+    auto g_issue = [&](int k) {
+      if (k < gsteps) {
+        const int jt = k / n_nk, n0 = (k % n_nk) * kWide;
+        unsigned char* st = ring + 2 * (k & 1) * kTileBytes;
+        load_tile(st, cb + (int64_t)i0 * N + n0, N, l - i0, N - n0, vec_bc);
+        load_tile(st + kTileBytes, bb + (int64_t)jt * kCols * N + n0, N,
+                  l - jt * kCols, N - n0, vec_bc);
+      }
+      cp_async_commit();
+    };
+    __syncthreads();                       // the ring's last readers done
+    g_issue(0);
+    float acc[8][4];                       // G: acc[0 .. 3]; Y: all
+    for (int k = 0; k < gsteps; ++k) {
+      g_issue(k + 1);
+      cp_async_wait<1>();
+      __syncthreads();                     // step k's chunks in
+      const int n0 = (k % n_nk) * kWide;
+      if (n0 == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      }
+      const uint32_t cs = smem_addr(ring + 2 * (k & 1) * kTileBytes);
+      const uint32_t bs = cs + kTileBytes;
+#pragma unroll
+      for (int ks = 0; ks < kWide / 8; ++ks) {
+        if (n0 + 8 * ks >= N) break;
+        uint32_t af[4], ah[4], al[4];
+        tf32::ldmatrix_x4(af, cs + ((grp * 16 + (lane & 7) +
+                                     ((lane >> 3) & 1) * 8) * kLd +
+                                    8 * ks + (lane >> 4) * 4) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tf32::split(__uint_as_float(af[e]), ah[e], al[e]);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int np = 2 * slot + q;     // 16 columns: n8 tiles 2q, 2q+1
+          uint32_t bf[4], bh[4], bl[4];
+          tf32::ldmatrix_x4(bf, bs + ((16 * np + (lane & 7) +
+                                       (lane >> 4) * 8) * kLd +
+                                      8 * ks + ((lane >> 3) & 1) * 4) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tf32::split(__uint_as_float(bf[e]), bh[e], bl[e]);
+          tf32::mma3(acc[2 * q], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          tf32::mma3(acc[2 * q + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+      if (n0 + kWide >= N) {               // the tile's last chunk: store G
+        const int jt = k / n_nk;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)     // slice 2 slot + nt / 2
+          *reinterpret_cast<float4*>(
+              g_w + (jt * kSlices + 2 * slot + nt / 2) * 256 + lane * 8 +
+              (nt % 2) * 4) =
+              make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+      }
+      __syncthreads();                     // read; step k + 2 reloads them
+    }
+
+    // ---- per head and P chunk: Y = (G o L) X over column tiles --------
+    // step s is (head pair hp, chunk pc, column tile jt), jt fastest:
+    // slot q's warps take head 2 hp + q.  The X tiles of step s + 1 load
+    // while step s computes.
+    const int n_hp = (heads + kSlots - 1) / kSlots;
+    const int nsteps = n_hp * n_pc * ncol;
+    auto issue = [&](int s) {
+      if (s < nsteps) {
+        const int jt = s % ncol, q = s / ncol;
+        const int p0 = (q % n_pc) * kWide, j0 = jt * kCols;
+        for (int sl = 0; sl < kSlots; ++sl) {
+          const int hh = (q / n_pc) * kSlots + sl;
+          if (hh < heads)
+            load_tile(ring + (s % kStages) * kStageBytes + sl * kTileBytes,
+                      x + ((cell * l + j0) * H + hg * kHeads + hh) *
+                              (int64_t)P + p0,
+                      (int64_t)H * P, l - j0, P - p0, vec_x);
+        }
+      }
+      cp_async_commit();
+    };
+    for (int s = 0; s < kStages - 1; ++s) issue(s);
+    float cum_i0 = 0.f, cum_i1 = 0.f;
+    const int gi0 = i0 + r0, gi1 = gi0 + 8;
+    for (int s = 0; s < nsteps; ++s) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();                     // tile s in; tile s - 1 read
+      issue(s + kStages - 1);
+      const int jt = s % ncol, q = s / ncol, pc = q % n_pc;
+      const int hh = (q / n_pc) * kSlots + slot;
+      if (hh >= heads) continue;           // an odd head count's last pair
+      const int j0 = jt * kCols, p0 = pc * kWide;
+      const int n_np = (min(kWide, P - p0) + 15) / 16;
+      const float* cum = cum_s + hh * l_pad;
+      if (jt == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+        cum_i0 = cum[gi0];
+        cum_i1 = cum[gi1];
+      }
+      const float* xs = reinterpret_cast<const float*>(
+          ring + (s % kStages) * kStageBytes + slot * kTileBytes);
+      const float* g_t = g_w + jt * kSlices * 256 + lane * 8;
+      if (jt == it)               // slices 0 .. grp reach the warp's rows
+        y_tile_n<true>(n_np, acc, g_t, cum + j0, cum_i0, cum_i1, r0,
+                       grp + 1, xs, lane);
+      else
+        y_tile_n<false>(n_np, acc, g_t, cum + j0, cum_i0, cum_i1, r0,
+                        kSlices, xs, lane);
+      if (jt != ncol - 1) continue;
+      // ---- store Y's rows of this head and P chunk --------------------
+      float* yh = y + (cell * l * H + hg * kHeads + hh) * (int64_t)P;
+      const int64_t ys = (int64_t)H * P;               // row stride of y
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= 2 * n_np) break;
+        const int p = p0 + 8 * nt + 2 * t;
+        if (vec_y) {
+          // quad neighbours t, t ^ 1 swap halves: even t stores row g,
+          // odd t row g + 8, four columns each
+          const bool odd = t & 1;
+          const float q0 = __shfl_xor_sync(
+              0xffffffffu, odd ? acc[nt][0] : acc[nt][2], 1);
+          const float q1 = __shfl_xor_sync(
+              0xffffffffu, odd ? acc[nt][1] : acc[nt][3], 1);
+          const int row = odd ? gi1 : gi0, pv = odd ? p - 2 : p;
+          if (row < l && pv < P)
+            *reinterpret_cast<float4*>(yh + row * ys + pv) =
+                odd ? make_float4(q0, q1, acc[nt][2], acc[nt][3])
+                    : make_float4(acc[nt][0], acc[nt][1], q0, q1);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? gi0 : gi1, pe = p + (e & 1);
+            if (row < l && pe < P) yh[row * ys + pe] = acc[nt][e];
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+}
+
+int launch(const void* x, const void* a, const void* b, const void* c,
+           void* y, int B, int nc, int l, int H, int P, int N,
+           cudaStream_t stream) {
+  const int n_row_tiles = (l + kRows - 1) / kRows;
+  const size_t smem = (size_t)kStages * kStageBytes +
+                      (size_t)kGroups * n_row_tiles * kGTile * sizeof(float) +
+                      (size_t)kHeads * n_row_tiles * kRows * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_tc32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  auto on16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const int vec = (P % 4 == 0 && on16(x) ? 1 : 0) |
+                  (N % 4 == 0 && on16(b) && on16(c) ? 2 : 0) |
+                  (P % 4 == 0 && on16(y) ? 4 : 0);
+  const int n_groups = (H + kHeads - 1) / kHeads;
+  const int64_t blocks =
+      (int64_t)B * nc * n_groups * ((n_row_tiles + 1) / 2);
+  ssd_chunk_tc32<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const float*)x, (const float*)a, (const float*)b, (const float*)c,
+      (float*)y, nc, l, H, P, N, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc32
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, b and c).
@@ -741,8 +967,8 @@ extern "C" int repro_ssd_chunk(const void* x, const void* a, const void* b,
   if (dtype == 1)
     return tc::launch(x, a, b, c, y, B, nc, l, H, P, N,
                       (cudaStream_t)stream);
-  return cuda_core::launch<float>(x, a, b, c, y, B, nc, l, H, P, N,
-                                  (cudaStream_t)stream);
+  return tc32::launch(x, a, b, c, y, B, nc, l, H, P, N,
+                      (cudaStream_t)stream);
 }
 
 extern "C" const char* repro_error_string(int code) {

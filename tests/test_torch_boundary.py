@@ -2,6 +2,7 @@
 no silent CPU fallback, and ``chip_smoke.py``'s phases rehearsed on the
 CPU at a tiny size."""
 import ast
+import contextlib
 import os
 import shutil
 import subprocess
@@ -365,15 +366,22 @@ def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):
         "cpu", prefill_shape=chip_smoke.ssd_shape(cfg, 2, 64), reps=1)
     assert set(rec) == {"name", "route", "source", "replaces", "launches",
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms"}
+                        "bound_by", "bound_route", "library_ms", "fp32"}
     assert rec["name"] == "ssd_chunk" and rec["max_abs_err"] == 0.0
+    # the fp32 record rides inside the bf16 one, with its own route
+    assert set(rec["fp32"]) == set(chip_smoke.TIMED_KEYS)
+    assert rec["bound_route"] == "bf16 tensor cores"
+    assert rec["fp32"]["bound_route"] == "3xTF32 tensor cores"
+    assert rec["fp32"]["max_abs_err"] == 0.0
     assert rec["bound_ms"] > 0 and rec["library_ms"] is None
     assert (ROOT / rec["source"]).exists()
     out = chip_smoke.phase_prefill("cpu", cfg, 2, 64)
     assert out["launches"] == {"ssd_chunk": 0}
     assert out["max_abs"] == 0.0 and out["greedy"] == 1.0
-    err = chip_smoke.phase_consistency("cpu", cfg, seq=48)
-    assert err <= chip_smoke.CONSISTENCY_ATOL
+    out = chip_smoke.phase_consistency("cpu", cfg, seq=48)
+    assert out["max_abs"] <= chip_smoke.CONSISTENCY_ATOL
+    assert out["launches"] == out["decode_launches"] == {"ssd_chunk": 0}
+    assert out["held"] == {"ssd_chunk": 0.0}
     served = chip_smoke.phase_serve("cpu", cfg, n_requests=3, batch=2,
                                     max_new=4)
     assert served["new_tokens"] == 12
@@ -381,35 +389,46 @@ def test_chip_smoke_model_phases_rehearse_on_cpu(chip_smoke):
 
 def test_ssd_bound_at_the_prefill_shape(chip_smoke):
     """The bound the kernel line reports: about 208 MB at 3.35 TB/s for
-    bf16 (bytes); fp32 inputs are bound by the fp32 CUDA-core rate."""
+    bf16 (bytes); fp32 inputs on 3xTF32 tensor cores are bound by their
+    279 MB too, the operations (three passes of 8.89 GFLOP at the TF32
+    peak, 0.0539 ms) under them.  On the fp32 CUDA cores, the first
+    port's route, the operations alone took 0.1327 ms."""
     import repro_torch.configs as C
     shape = chip_smoke.ssd_shape(C.get("mamba2-1.3b"), 4, 2048)
     assert shape == (4, 8, 256, 64, 64, 128)
-    ms, by = chip_smoke.ssd_bound(shape, torch.bfloat16)
+    ms, by, route = chip_smoke.ssd_bound(shape, torch.bfloat16)
     assert by == "bytes" and abs(ms - 0.062) < 0.001
-    ms32, by32 = chip_smoke.ssd_bound(shape, torch.float32)
-    # the causal half of G and of Y: 8.89 GFLOP at the fp32 peak
-    assert by32 == "operations" and abs(ms32 - 0.1327) < 0.0001
+    assert route == "bf16 tensor cores"
+    ms32, by32, route32 = chip_smoke.ssd_bound(shape, torch.float32)
+    assert by32 == "bytes" and abs(ms32 - 0.0833) < 0.0001
+    assert route32 == "3xTF32 tensor cores"
+    flops = chip_smoke.ssd_flops(shape)
+    assert abs(flops / 1e9 - 8.89) < 0.01
+    ops, _ = chip_smoke.route_ms(flops, torch.float32)
+    assert abs(ops - 0.0539) < 0.0001
+    assert abs(flops / chip_smoke.PEAK_FLOPS[torch.float32] * 1e3
+               - 0.1327) < 0.0001
 
 
 def test_ssd_kernel_flops_at_the_prefill_shape(chip_smoke):
     """The work the kernels do at the prefill shape: G once per 8-head
-    group over the 10 causal 64 x 64 tiles; bf16 Y over 136 16 x 16
-    slices a head, three passes; fp32 Y over the 10 whole tiles."""
+    group over the 10 causal 64 x 64 tiles, one pass in bf16 and three
+    (3xTF32) in fp32; Y over 136 16 x 16 slices a head, three passes in
+    both."""
     import repro_torch.configs as C
     shape = chip_smoke.ssd_shape(C.get("mamba2-1.3b"), 4, 2048)
     g = 4 * 8 * 8 * 10 * 2 * 64 * 64 * 128
-    assert chip_smoke.ssd_kernel_flops(shape, torch.bfloat16) == \
-        g + 4 * 8 * 64 * 136 * 3 * 2 * 16 * 16 * 64
-    assert chip_smoke.ssd_kernel_flops(shape, torch.float32) == \
-        g + 4 * 8 * 64 * 10 * 2 * 64 * 64 * 64
-    # padding: N 40 -> 48 (bf16) / 64 (fp32), P 24 -> 32 / 64, one tile
+    y = 4 * 8 * 64 * 136 * 3 * 2 * 16 * 16 * 64
+    assert chip_smoke.ssd_kernel_flops(shape, torch.bfloat16) == g + y
+    assert chip_smoke.ssd_kernel_flops(shape, torch.float32) == 3 * g + y
+    # padding: N 40 -> 48 (bf16 k16 steps) / 40 (TF32 k8 steps), P 24 ->
+    # 32, one tile
     assert chip_smoke.ssd_kernel_flops((1, 1, 16, 3, 24, 40),
                                        torch.bfloat16) == \
         2 * 64 * 64 * 48 + 3 * 10 * 3 * 2 * 16 * 16 * 32
     assert chip_smoke.ssd_kernel_flops((1, 1, 16, 3, 24, 40),
                                        torch.float32) == \
-        2 * 64 * 64 * 64 + 3 * 2 * 64 * 64 * 64
+        3 * 2 * 64 * 64 * 40 + 3 * 10 * 3 * 2 * 16 * 16 * 32
 
 
 def _ptxas(fn, regs, stores=0, loads=0):
@@ -472,6 +491,29 @@ def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "g.cuh").write_text("// another header\n")
     assert build._target("k") not in (first, second)
 
+def test_chip_smoke_flash_shapes_time_each_named_call(chip_smoke):
+    """Phase 19's flash half at small shapes on the CPU: every call held
+    to the plain version, and the calls ``timed`` names (on the card,
+    Whisper's encoder and its one-query cross-attention) timed in both
+    dtypes beside their route's bound and SDPA."""
+    cases = (((1, 2, 2, 40, 40, 32), False), ((1, 2, 2, 24, 24, 32), True),
+             ((1, 2, 2, 1, 40, 32), False))
+    timed = {"encoder": 0, "cross_decode": 2}
+    recs = chip_smoke.phase_flash_shapes("cpu", cases, timed=timed, reps=1)
+    assert set(recs) == set(timed)
+    for label, i in timed.items():
+        assert set(recs[label]) == {"bf16", "fp32"}
+        for dtype, r in recs[label].items():
+            assert r["shape"] == list(cases[i][0])
+            assert r["causal"] == cases[i][1]
+            assert r["max_abs_err"] == 0.0 and r["library_ms"] > 0
+            assert r["bound_route"] == {"bf16": "bf16 tensor cores",
+                                        "fp32": "3xTF32 tensor cores"}[dtype]
+    (b, h, hkv, sq, sk, d), causal = chip_smoke.WHISPER_ATTN[
+        chip_smoke.WHISPER_TIMED["cross_decode"]]
+    assert sq == 1 and sk == 1500 and not causal
+
+
 def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
     """Phases 13-18 at small shapes and the smoke config: the CPU takes
     the plain versions, so no launches are counted."""
@@ -485,8 +527,13 @@ def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
     bsmm = chip_smoke.phase_bsmm_kernel(
         "cpu", card_case=(256, 256, 64, 64, 64, 64, 0.3),
         shapes=chip_smoke.BSMM_SHAPES[-2:], reps=1)
-    assert set(flash) == keys
-    # the block-sparse row adds its bound's route and its bf16 card case
+    # both rows add their bound's route; flash its fp32 prefill record,
+    # the block-sparse row its bf16 card case
+    assert set(flash) == keys | {"bound_route", "fp32"}
+    assert flash["bound_route"] == "bf16 tensor cores"
+    assert flash["fp32"]["bound_route"] == "3xTF32 tensor cores"
+    assert flash["fp32"]["max_abs_err"] == 0.0
+    assert flash["fp32"]["library_ms"] > 0
     assert set(bsmm) == keys | {"bound_route", "bf16"}
     assert bsmm["bound_route"] == "3xTF32 tensor cores"
     assert bsmm["bf16"]["bound_route"] == "bf16 tensor cores"
@@ -501,8 +548,10 @@ def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
     out = chip_smoke.phase_prefill("cpu", cfg, 2, 64)
     assert out["launches"] == {"flash_attention": 0}
     assert out["max_abs"] == 0.0 and out["greedy"] == 1.0
-    err = chip_smoke.phase_consistency("cpu", cfg, seq=24)
-    assert err <= chip_smoke.CONSISTENCY_ATOL
+    out = chip_smoke.phase_consistency("cpu", cfg, seq=24)
+    assert out["max_abs"] <= chip_smoke.CONSISTENCY_ATOL
+    assert out["launches"] == {"flash_attention": 0}
+    assert out["held"] == {"flash_attention": 0.0}
     served = chip_smoke.phase_serve("cpu", cfg, n_requests=3, batch=2,
                                     max_new=4)
     assert served["new_tokens"] == 12
@@ -511,16 +560,35 @@ def test_chip_smoke_dense_phases_rehearse_on_cpu(chip_smoke):
 def test_dense_bounds_at_the_card_shapes(chip_smoke):
     """The bounds the kernel line reports: flash attention at the
     Qwen2-7B prefill shape, about 120 GFLOP at the bf16 peak against
-    134 MB; the card-sized block-sparse case, 2 bm bk N a tile by its
-    route: three TF32 passes at the TF32 peak in fp32 against about
-    147 MB, one pass at the bf16 peak in bf16 against 90.6 MB."""
+    134 MB, and in fp32 three TF32 passes at the TF32 peak, there and at
+    Whisper's encoder; ``ssd_chunk`` in fp32 at the Mamba2 and Jamba
+    prefill shapes, bound by their bytes on 3xTF32; the card-sized
+    block-sparse case, 2 bm bk N a tile by its route: three TF32 passes
+    at the TF32 peak in fp32 against about 147 MB, one pass at the bf16
+    peak in bf16 against 90.6 MB."""
     import repro_torch.configs as C
     shape = chip_smoke.attn_shape(C.get("qwen2-7b"), 4, 2048)
     assert shape == (4, 28, 4, 2048, 2048, 128)
-    ms, by = chip_smoke.flash_bound(shape, torch.bfloat16)
+    ms, by, route = chip_smoke.flash_bound(shape, torch.bfloat16)
     assert by == "operations" and abs(ms - 0.1217) < 0.0001
-    full, _ = chip_smoke.flash_bound(shape, torch.bfloat16, causal=False)
+    assert route == "bf16 tensor cores"
+    full, _, _ = chip_smoke.flash_bound(shape, torch.bfloat16, causal=False)
     assert abs(full / ms - 2 * 2048 / 2049) < 1e-9
+    # fp32 on 3xTF32: the first port's CUDA-core figures were 1.7958 and
+    # 0.4127 ms
+    ms, by, route = chip_smoke.flash_bound(shape, torch.float32)
+    assert by == "operations" and abs(ms - 0.7292) < 0.0001
+    assert route == "3xTF32 tensor cores"
+    (enc, causal), = [c for c in chip_smoke.WHISPER_ATTN
+                      if c[0][3] == c[0][4] == 1500]
+    ms, by, _ = chip_smoke.flash_bound(enc, torch.float32, causal)
+    assert by == "operations" and abs(ms - 0.1676) < 0.0001
+    for cfg, want in ((C.get("mamba2-1.3b"), 0.0833),
+                      (chip_smoke.hybrid_config(), 0.1640)):
+        ms, by, route = chip_smoke.ssd_bound(
+            chip_smoke.ssd_shape(cfg, 4, 2048), torch.float32)
+        assert by == "bytes" and abs(ms - want) < 0.0001
+        assert route == "3xTF32 tensor cores"
     ms, by, route = chip_smoke.bsmm_bound(1229, 128, 128, 8192, 1024, 8192,
                                           torch.float32)
     assert by == "operations" and abs(ms - 0.2499) < 0.0001
@@ -577,8 +645,10 @@ def test_chip_smoke_family_phases_rehearse_on_cpu(chip_smoke, arch, seq):
     assert (out["dropped"] is None) == (cfg.family == "encdec")
     cons = chip_smoke.consistency_config(cfg)
     assert (cons.moe is None) == (cfg.family == "encdec")
-    err = chip_smoke.phase_consistency("cpu", cons, seq=32)
-    assert err <= chip_smoke.CONSISTENCY_ATOL
+    out = chip_smoke.phase_consistency("cpu", cons, seq=32)
+    assert out["max_abs"] <= chip_smoke.CONSISTENCY_ATOL
+    assert out["launches"] == out["decode_launches"] == want
+    assert out["held"] == {n: 0.0 for n in want}
     served = chip_smoke.phase_serve("cpu", cfg, n_requests=3, batch=2,
                                     max_new=4)
     assert served["new_tokens"] == 12
@@ -597,12 +667,19 @@ def test_chip_smoke_family_driver_rehearses_on_cpu(chip_smoke, capsys):
              chip_smoke.consistency_config(C.get_smoke(a)), 32)
             for a in ("qwen2-moe-a2.7b", "whisper-small",
                       "jamba-1.5-large-398b")]
-    paths = chip_smoke.phase_families("cpu", "cpu", plan, batch=2,
-                                      dispatch_shape=(2, 32))
-    assert paths == {"qwen2_prefill": {"flash_attention": 0},
-                     "whisper_prefill": {"flash_attention": 0},
-                     "jamba_prefill": {"flash_attention": 0,
-                                       "ssd_chunk": 0}}
+    paths, cons = chip_smoke.phase_families("cpu", "cpu", plan, batch=2,
+                                            dispatch_shape=(2, 32))
+    flash, both = {"flash_attention": 0}, {"flash_attention": 0,
+                                           "ssd_chunk": 0}
+    assert paths == {"qwen2_prefill": flash, "qwen2_consistency": flash,
+                     "whisper_prefill": flash,
+                     "whisper_consistency": flash,
+                     "whisper_consistency_decode": flash,
+                     "jamba_prefill": both, "jamba_consistency": both}
+    assert set(cons) == {"qwen2_consistency", "whisper_consistency",
+                         "jamba_consistency"}
+    assert cons["jamba_consistency"]["held"] == {"flash_attention": 0.0,
+                                                 "ssd_chunk": 0.0}
     out = capsys.readouterr().out
     for name in ("qwen2_prefill", "qwen2_prefill_faults",
                  "qwen2_consistency", "qwen2_serve",
@@ -623,6 +700,102 @@ def test_chip_smoke_prefill_launches_by_family(chip_smoke):
                    "qwen2-7b": {"flash_attention": 28}}
     assert chip_smoke.prefill_launches(chip_smoke.hybrid_config()) == \
         {"flash_attention": 1, "ssd_chunk": 7}
+
+
+def test_chip_smoke_decode_launches_by_family(chip_smoke):
+    """The launches the consistency phases expect of their fp32 decode
+    steps: Whisper's cross-attention, one a decoder layer a step (12 x
+    128); every other family decodes in plain torch."""
+    import repro_torch.configs as C
+    got = {a: chip_smoke.decode_launches(C.get(a), 128) for a in
+           ("whisper-small", "mamba2-1.3b", "qwen2-7b", "qwen2-moe-a2.7b")}
+    assert got == {"whisper-small": {"flash_attention": 1536},
+                   "mamba2-1.3b": {"ssd_chunk": 0},
+                   "qwen2-7b": {"flash_attention": 0},
+                   "qwen2-moe-a2.7b": {"flash_attention": 0}}
+    assert chip_smoke.decode_launches(chip_smoke.hybrid_config(), 256) == \
+        {"flash_attention": 0, "ssd_chunk": 0}
+
+
+def test_chip_smoke_consistency_holds_each_kernel_call(chip_smoke):
+    """``record_calls`` keeps one call of each kernel signature of an
+    fp32 prefill (both kernels of the hybrid), and ``hold_calls`` holds
+    each to its plain version on those inputs: sound kernels pass, a
+    ``flash_attention`` that drops its last keys fails at its own
+    shape."""
+    import dataclasses
+    import repro_torch.configs as C
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import api
+    cfg = dataclasses.replace(C.get_smoke("jamba-1.5-large-398b"),
+                              dtype="float32")
+    params = api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    data = api.make_batch(cfg, torch.Generator().manual_seed(1), 1, 32)
+    data = {k: v if k in ("tokens", "labels") else v.float()
+            for k, v in data.items()}
+    step = make_prefill_step(cfg, "cpu")
+    for fault in (None, chip_smoke._drop_key_tile):
+        calls = {}
+        with contextlib.ExitStack() as stack:
+            if fault is not None:
+                stack.enter_context(chip_smoke.planted_fault(fault))
+            stack.enter_context(chip_smoke.record_calls(cfg, calls))
+            step(params, data)
+        assert sorted(c[0] for c in calls.values()) == \
+            ["flash_attention", "ssd_chunk"]
+        if fault is None:
+            assert chip_smoke.hold_calls(calls, "sound") == \
+                {"flash_attention": 0.0, "ssd_chunk": 0.0}
+        else:
+            with pytest.raises(AssertionError,
+                               match="flash_attention != plain"):
+                chip_smoke.hold_calls(calls, "planted")
+
+
+def test_chip_smoke_attach_model_paths(chip_smoke):
+    """The kernels line's launches: the model paths and the throughput
+    path added to each record, the fp32 route's own launches and held
+    errors from the consistency paths; a kernel whose fp32 route never
+    launched fails the run."""
+    def records():
+        return [{"name": "search", "launches": 5,
+                 "launches_by_path": {"main": 5}},
+                {"name": "ssd_chunk", "launches": 48, "fp32": {}},
+                {"name": "flash_attention", "launches": 28, "fp32": {}},
+                {"name": "block_sparse_matmul", "launches": 4,
+                 "bf16": {}}]
+    paths = {"jamba_prefill": {"flash_attention": 1, "ssd_chunk": 7},
+             "consistency": {"ssd_chunk": 48},
+             "dense_consistency": {"flash_attention": 28},
+             "whisper_consistency": {"flash_attention": 36},
+             "whisper_consistency_decode": {"flash_attention": 1536}}
+    cons = {"consistency": {"held": {"ssd_chunk": 3e-6}},
+            "dense_consistency": {"held": {"flash_attention": 2e-6}},
+            "whisper_consistency": {"held": {"flash_attention": 1e-6}}}
+    throughput = {"search": 56, "ssd_chunk": 0, "flash_attention": 0,
+                  "block_sparse_matmul": 0}
+    kernels = records()
+    chip_smoke.attach_model_paths(kernels, paths, cons, throughput)
+    search, ssd, flash, bsmm = kernels
+    assert search["launches"] == 61
+    assert search["launches_by_path"] == {"main": 5, "throughput": 56}
+    assert ssd["launches"] == 48 + 7 + 48
+    assert ssd["launches_by_path"] == {"prefill": 48, "jamba_prefill": 7,
+                                       "consistency": 48, "throughput": 0}
+    assert ssd["fp32"] == {"launches": 48,
+                           "launches_by_path": {"consistency": 48},
+                           "max_abs_err_by_path": {"consistency": 3e-6}}
+    assert flash["fp32"]["launches"] == 28 + 36 + 1536
+    assert flash["fp32"]["max_abs_err_by_path"] == {
+        "dense_consistency": 2e-6, "whisper_consistency": 1e-6}
+    assert flash["launches"] == 28 + 1 + 28 + 36 + 1536
+    assert bsmm["launches_by_path"] == {"kernels_bench": 4,
+                                        "throughput": 0}
+    assert "launches" not in bsmm["bf16"]
+    paths["consistency"] = {"ssd_chunk": 0}
+    with pytest.raises(AssertionError, match="ssd_chunk never launched "
+                                             "on the fp32"):
+        chip_smoke.attach_model_paths(records(), paths, cons, throughput)
 
 
 def test_chip_smoke_family_kernel_cases(chip_smoke):

@@ -162,6 +162,41 @@ def test_ssd_chunk_strong_decay_on_card(cuda_device, shape, dtype):
                                rtol=2e-4, atol=2e-4)
 
 
+#: the fp32 kernel (3xTF32, one CTA an SM): the longest chunk (l 512,
+#: 212 KB of shared memory) at Mamba2's widths and off them, N and P off
+#: the 16-column tiles and the 8-column steps (N 20, P 12; N 6 and P 10
+#: off 16-byte rows too: element-wise loads and stores), l off the
+#: 64-row tiles, and one head
+SSD_FP32_CASES = [(1, 2, 512, 8, 64, 128), (1, 1, 512, 9, 40, 24),
+                  (1, 1, 500, 3, 48, 72), (2, 1, 192, 3, 12, 20),
+                  (1, 2, 256, 2, 10, 6), (1, 1, 64, 1, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_FP32_CASES, ids=str)
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+def test_ssd_chunk_fp32_kernel_on_card(cuda_device, shape, strong):
+    """3xTF32 on G and Y: within 2e-4 (1 + |want|) of the plain version,
+    under normal and strong decay."""
+    B, nc, l, H, P, N = shape
+    gen = torch.Generator(cuda_device).manual_seed(6)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    x = randn(B, nc, l, H, P)
+    a = -5 * torch.rand(B, H, nc, l, generator=gen, device=cuda_device) \
+        if strong else -randn(B, H, nc, l).abs() * 0.1
+    b, c = randn(B, nc, l, N), randn(B, nc, l, N)
+    before = ssd_chunk.launches
+    got = ssd_chunk(x, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ssd_chunk_plain(x, a, b, c),
+                               rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.cuda
 def test_smoke_prefill_on_card_launches_the_kernel(cuda_device):
     import repro_torch.configs as C
@@ -303,6 +338,83 @@ def test_flash_attention_bf16_empty_batch_on_card(cuda_device):
     got = flash_attention(q, k, v)
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     assert flash_attention.launches == before
+
+
+#: the fp32 kernel (3xTF32 on wgmma; 128-query blocks, 64-key tiles or
+#: 32 at d 128): (b, h, hkv, sq, sk, d) at every head dim with lengths
+#: that are multiples of neither tile, keys below one tile, sq < sk and
+#: sq > sk, GQA group 7, one key, one query, and Whisper's decoder
+#: self-attention (causal) at batch 1
+FP32_CASES = [(2, 4, 2, 200, 333, 32), (1, 3, 3, 200, 333, 64),
+              (1, 2, 1, 200, 333, 128), (2, 2, 1, 64, 40, 128),
+              (1, 4, 2, 333, 200, 64), (1, 4, 4, 100, 260, 128),
+              (1, 14, 2, 300, 300, 128), (1, 14, 2, 129, 1, 32),
+              (2, 3, 3, 1, 333, 64), (1, 12, 12, 448, 448, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FP32_CASES, ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_fp32_kernel_on_card(cuda_device, shape, causal):
+    """The 3xTF32 kernel: within the fp32 limit, 2e-5, of the plain
+    version, one launch per call."""
+    q, k, v = _qkv(shape, torch.float32, cuda_device, seed=8)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, causal),
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fp32_values_with_a_shared_mean_on_card(cuda_device):
+    """Whisper's cross-attention at batch 1 (128 queries over 1500 frames)
+    with values offset by 2.5, as the encoder's share a mean: each key
+    tile's P V is accumulated apart and added to O with rounding, so the
+    tensor cores' truncation does not compound over the 24 tiles."""
+    q, k, v = _qkv((1, 12, 12, 128, 1500, 64), torch.float32, cuda_device,
+                   seed=9)
+    v = v + 2.5
+    got = flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, False),
+                               rtol=0, atol=2e-5)
+
+
+def _strided_qkv32(layout, device):
+    """q [2, 12, 150, 64] and k, v [2, 4, 150, 64] fp32 as ``mha`` passes
+    them: [b, h, s, d] views of [b, s, h, d] projections.  ``pad`` widens
+    each head row by 2 elements (head stride 66: off the 16-byte rule);
+    ``offset`` starts the storage one element in.  Both take the copy;
+    ``views`` is read in place."""
+    gen = torch.Generator(device).manual_seed(3)
+    w = 66 if layout == "pad" else 64
+    n = 2 * 150 * 12 * w + 2 * 150 * 4 * 2 * w
+    flat = torch.randn(n + 1, generator=gen, device=device)
+    flat = flat[1:] if layout == "offset" else flat[:n]
+    qf = flat[:2 * 150 * 12 * w].view(2, 150, 12, w)
+    kvf = flat[2 * 150 * 12 * w:].view(2, 150, 4, 2, w)
+    return (qf[..., :64].transpose(1, 2), kvf[..., 0, :64].transpose(1, 2),
+            kvf[..., 1, :64].transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["views", "pad", "offset"])
+def test_flash_attention_fp32_strided_views_on_card(cuda_device, layout):
+    q, k, v = _strided_qkv32(layout, cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    # in place, the output keeps q's [b, s, h, d] layout
+    assert got.transpose(1, 2).is_contiguous() == (layout == "views")
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                               rtol=0, atol=2e-5)
+    # the same arithmetic as on contiguous copies
+    want = flash_attention(*(t.contiguous() for t in (q, k, v)))
+    assert torch.equal(got, want)
 
 
 #: (M, K, N, bm, bk, bn, tile density): the reference's BSMM_SHAPES (the
