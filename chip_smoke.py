@@ -127,7 +127,29 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     and 7 ``ssd_chunk`` launches;
 28. hybrid_consistency -- phase 11 for that Jamba at capacity factor 60,
                     256 tokens;
-29. hybrid_serve -- phase 12 for that Jamba.
+29. hybrid_serve -- phase 12 for that Jamba;
+30. flash_grad   -- the ``flash_attention`` backward kernel against its
+                    plain version (the forward kernel's o and lse as
+                    inputs) at OLMo-1B's train shape, Qwen2-7B's GQA
+                    shape and Whisper's cross shape, bf16 and fp32, timed
+                    beside its bound, the plain version and SDPA's
+                    backward; each gradient element's error is taken
+                    over the summed magnitude of its terms, and the
+                    backward with its last 8 keys or its last key tile
+                    dropped must fail the hold;
+31. train_step   -- ``make_train_step`` on OLMo-1B at full width (bf16,
+                    AdamW with its fp32 master copy, remat), batch 8 x
+                    2048 from the ported pipeline: 2 warm-up and 5 timed
+                    steps, tokens/s, the model-FLOP share, peak memory;
+                    32 flash forward and 16 backward launches a step;
+32. train_consistency -- OLMo-1B at full width and 2 layers in fp32: one
+                    step's loss and gradients with the kernels against
+                    the plain attention's; every forward and backward
+                    kernel call held to its plain version;
+33. trainer      -- ``launch/train.py`` at full width and 2 layers, 6
+                    steps with a checkpoint every 3, then a fresh
+                    ``Trainer`` resumed from step 3 to the same step-6
+                    loss.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -142,6 +164,7 @@ import ctypes
 import dataclasses
 import json
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -176,14 +199,23 @@ from repro_torch.kernels import (KERNELS, MODEL_KERNELS,  # noqa: E402
                                  multi_merge_ranks_plain, search,
                                  search_plain, ssd_chunk, ssd_chunk_plain)
 from repro_torch.kernels import backends as kbk  # noqa: E402
+from repro_torch.kernels import (flash_attention_bwd,  # noqa: E402
+                                 flash_attention_bwd_plain,
+                                 flash_attention_lse_plain)
+# kernel vs plain backward, by dtype (the reasons are the constant's)
+from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
+    ATOL as BWD_ATOL, bwd_err, flash_attention_bwd_scale)
 from repro_torch.kernels.backends import (CudaKernels,  # noqa: E402
                                           TorchKernels)
 # kernel vs plain flash attention, by dtype (the reasons are the constant's)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ATOL as FLASH_ATOL)
 from repro_torch.launch.serve import Request, Server  # noqa: E402
+from repro_torch.data import (DataConfig,  # noqa: E402
+                              ShardedSyntheticDataset)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
-                                      make_serve_step)
+                                      make_serve_step, make_train_step)
+from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -191,7 +223,16 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.obs.spans import trace_session  # noqa: E402
+from repro_torch.optim import optimizers as opt_mod  # noqa: E402
+from repro_torch.runtime.trainer import Trainer  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
+
+#: the module of ``flash_attention`` (the package attribute of that name is
+#: the function)
+FA_MODULE = sys.modules["repro_torch.kernels.flash_attention"]
+#: the module whose ``flash_attention_bwd`` ``FlashAttention.backward``
+#: calls (the package attribute of that name is the function)
+BWD_MODULE = sys.modules["repro_torch.kernels.flash_attention_bwd"]
 
 #: H100 SXM device-memory rate and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1563,6 +1604,10 @@ def _sync(device: torch.device) -> None:
 #: its plain version
 PREFILL_KERNELS = {"ssd_chunk": (ssm_mod, ssd_chunk_plain),
                    "flash_attention": (layers_mod, flash_attention_plain)}
+#: the kernels whose calls ``record_calls`` can keep: the prefill's and
+#: the backward that ``FlashAttention`` calls
+HELD_KERNELS = {**PREFILL_KERNELS, "flash_attention_bwd": (
+    BWD_MODULE, flash_attention_bwd_plain)}
 #: per family, the limits (max abs, mean abs, greedy-token share) that hold
 #: the kernels' bf16 logits to the plain versions'.  Whisper takes the
 #: dense family's (one attention kernel, 36 launches deep); the hybrid
@@ -1957,14 +2002,16 @@ def decode_launches(cfg, steps: int) -> Dict[str, int]:
 
 
 @contextlib.contextmanager
-def record_calls(cfg, calls: Dict[tuple, tuple]):
-    """``cfg``'s model kernels (``prefill_launches``) run as before for
-    the duration, and the first call of each signature (kernel, shapes,
-    strides, dtypes, other arguments) is kept in ``calls`` as (name,
-    kernel, copies of its arguments, keywords), to be held to the plain
-    version by ``hold_calls`` afterwards."""
-    saved = {n: getattr(PREFILL_KERNELS[n][0], n)
-             for n in prefill_launches(cfg)}
+def record_calls(cfg, calls: Dict[tuple, tuple], backward: bool = False):
+    """``cfg``'s model kernels (``prefill_launches``; with ``backward``
+    also ``flash_attention_bwd``) run as before for the duration, and the
+    first call of each signature (kernel, shapes, strides, dtypes, other
+    arguments) is kept in ``calls`` as (name, kernel, copies of its
+    arguments, keywords), to be held to the plain version by
+    ``hold_calls`` afterwards."""
+    names = list(prefill_launches(cfg)) + (["flash_attention_bwd"]
+                                           if backward else [])
+    saved = {n: getattr(HELD_KERNELS[n][0], n) for n in names}
 
     def recording(name, kernel):
         def call(*args, **kw):
@@ -1979,41 +2026,59 @@ def record_calls(cfg, calls: Dict[tuple, tuple]):
             return kernel(*args, **kw)
         return call
     for n, kernel in saved.items():
-        setattr(PREFILL_KERNELS[n][0], n, recording(n, kernel))
+        setattr(HELD_KERNELS[n][0], n, recording(n, kernel))
     try:
         yield
     finally:
         for n, kernel in saved.items():
-            setattr(PREFILL_KERNELS[n][0], n, kernel)
+            setattr(HELD_KERNELS[n][0], n, kernel)
+
+
+def _call_err(name: str, args, kw, got, want) -> Tuple[float, str, bool]:
+    """One kept call's max abs error against its plain version, what it
+    was held to, and whether it held: ``flash_attention`` within
+    FLASH_ATOL of its dtype; ``ssd_chunk`` within SSD_TOL (1 + |want|);
+    ``flash_attention_bwd`` within BWD_ATOL by ``bwd_err`` (each element
+    over its terms' magnitude).  Same shapes and dtypes, finite."""
+    if name == "flash_attention_bwd":
+        err = bwd_err(got, want, flash_attention_bwd_scale(*args, **kw))
+        abs_err = max((float((g.float() - w.float()).abs().max())
+                       for g, w in zip(got, want)), default=0.0)
+        limit = BWD_ATOL[args[0].dtype]
+        return abs_err, f"bwd_err {err:.3g}, limit {limit}", err <= limit
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if name == "flash_attention":
+        limit = FLASH_ATOL[args[0].dtype]
+        held = err <= limit
+    else:
+        limit = SSD_TOL
+        held = bool((diff <= SSD_TOL * (1 + want.float().abs())).all())
+    ok = got.shape == want.shape and got.dtype == want.dtype and \
+        bool(torch.isfinite(got).all())
+    return err, f"limit {limit}", held and ok
 
 
 def hold_calls(calls: Dict[tuple, tuple], label: str) -> Dict[str, float]:
     """Each call ``record_calls`` kept, again on its kernel and on the
-    plain version: ``flash_attention`` within FLASH_ATOL of its dtype,
-    ``ssd_chunk`` within SSD_TOL (1 + |want|), same shape, finite.
-    Returns each kernel's largest max abs error."""
+    plain version, held by ``_call_err``.  Returns each kernel's largest
+    max abs error."""
     errs: Dict[str, float] = {}
     with torch.no_grad():
         for name, kernel, args, kw in calls.values():
             got = kernel(*args, **kw)
-            want = PREFILL_KERNELS[name][1](*args, **kw)
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            limit = FLASH_ATOL[args[0].dtype] if name == "flash_attention" \
-                else SSD_TOL
-            held = err <= limit if name == "flash_attention" else \
-                bool((diff <= SSD_TOL * (1 + want.float().abs())).all())
+            want = HELD_KERNELS[name][1](*args, **kw)
+            err, against, held = _call_err(name, args, kw, got, want)
             shapes = [tuple(a.shape) for a in args
                       if isinstance(a, torch.Tensor)]
-            if got.shape != want.shape or got.dtype != want.dtype or \
-                    not bool(torch.isfinite(got).all()) or not held:
+            if not held:
                 raise AssertionError(f"{label}: {name} != plain at {shapes}"
                                      f" {args[0].dtype} {kw}: max abs err "
-                                     f"{err}")
+                                     f"{err} ({against})")
             log(f"{label}: {name} at {shapes} {args[0].dtype} {kw} held to "
-                f"its plain version: max abs err {err:.3g} (limit {limit})")
+                f"its plain version: max abs err {err:.3g} ({against})")
             errs[name] = max(errs.get(name, 0.0), err)
-            del got, want, diff
+            del got, want
     return errs
 
 
@@ -2578,6 +2643,443 @@ def attach_model_paths(kernels: List[Dict], paths: Dict[str, Dict[str, int]],
                 raise AssertionError(f"{name} never launched on {where}")
 
 
+# ---------------------------------------------------------------------- #
+# 30-33: the training path
+# ---------------------------------------------------------------------- #
+#: the backward kernel's entry in the result line: it replaces no TPU
+#: kernel (the Pallas kernel has no VJP); the field names the kernel whose
+#: gradient it is
+BWD_INFO = ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:113")
+#: ((b, h, hkv, sq, sk, d), causal) of phase flash_grad: OLMo-1B's train
+#: shape, Qwen2-7B's GQA prefill shape, Whisper's cross-attention (a
+#: ragged last key tile at 1,500 frames)
+FLASH_GRAD_CASES = (((8, 16, 16, 2048, 2048, 128), True),
+                    ((4, 28, 4, 2048, 2048, 128), True),
+                    ((4, 12, 12, 448, 1500, 64), False))
+#: the training path: OLMo-1B at its published widths, batch x tokens
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+#: phases train_consistency and trainer: OLMo-1B at full width, its depth
+#: cut to this many layers
+TRAIN_CUT_LAYERS = 2
+#: phase train_consistency: batch x tokens of its one fp32 step
+TRAIN_CONSISTENCY_SHAPE = (2, 1024)
+#: fp32 train step, kernels vs plain attention: the loss to rel 1e-5 and
+#: each parameter's gradient to 1e-4 of its own max |grad| (fp32
+#: reassociation and 3xTF32 products in the attention; the CPU tests
+#: hold the plain step to the reference at these limits)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+#: phase trainer: steps and checkpoint interval of the launcher's run
+TRAINER_STEPS, TRAINER_EVERY = 6, 3
+
+
+def flash_bwd_flops(shape, causal: bool = True) -> int:
+    """Operations of the backward's five products (S, dP, dV, dK, dQ;
+    the forward has two) over the pairs the mask keeps."""
+    return flash_flops(shape, causal) * 5 // 2
+
+
+def flash_bwd_bound(shape, dtype, causal: bool = True
+                    ) -> Tuple[float, str, str]:
+    """The least time (ms) of one ``flash_attention_bwd`` call on an
+    H100: q, k, v, o, do and lse read once, dq, dk, dv written once,
+    against ``flash_bwd_flops`` on the route of the dtype."""
+    b, h, hkv, sq, sk, d = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    nbytes = es * (4 * b * h * sq * d + 4 * b * hkv * sk * d) + \
+        4 * b * h * sq
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops, route = route_ms(flash_bwd_flops(shape, causal), dtype)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), route
+
+
+def _forward_lse(q, k, v, causal: bool):
+    """The forward's output and row log-sum-exp: the kernel's on the
+    card, the plain versions' on the CPU."""
+    if q.device.type == "cuda":
+        o, lse, _ = FA_MODULE._launch(q, k, v, causal, with_lse=True)
+        return o, lse
+    return (flash_attention_plain(q, k, v, causal),
+            flash_attention_lse_plain(q, k, v, causal))
+
+
+def _drop_last_keys(n: int) -> Callable:
+    """A fault of the backward kernel: it stops ``n`` keys early, so the
+    last ``n`` keys' rows of dk and dv come back zero and their terms are
+    missing from dq."""
+    def fault(kernel: Callable) -> Callable:
+        def faulty(q, k, v, o, lse, do, causal=True):
+            sk = k.shape[2] - n
+            dq, dk, dv = kernel(q, k[:, :, :sk], v[:, :, :sk], o, lse, do,
+                                causal)
+            pad = (0, 0, 0, n)
+            return (dq, torch.nn.functional.pad(dk, pad),
+                    torch.nn.functional.pad(dv, pad))
+        return faulty
+    return fault
+
+
+#: planted faults of ``flash_attention_bwd`` that phase flash_grad's hold
+#: must catch at every case: the last key tile, and the last 8 keys (at a
+#: causal sq = sk, keys seen by one to eight queries: the smallest
+#: gradients)
+BWD_FAULTS = {"drop_key_tile": _drop_last_keys(64),
+              "drop_last_8_keys": _drop_last_keys(8)}
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal: bool, device, reps: int) -> float:
+    """SDPA's backward under autograd on the same inputs (its forward
+    taken once, outside the timing): the yardstick, never a path."""
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=True)
+    ms = _time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                              retain_graph=True),
+                  device, reps)
+    del out, qs, ks, vs
+    return ms
+
+
+def bwd_registers() -> List[str]:
+    """nvcc's register and spill lines of the backward's kernels, each
+    named by its entry (from this process's build)."""
+    out, entry = [], ""
+    for ln in build.BUILD_LOGS.get("flash_attention_bwd", "").splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+            for part in ("dsum_kernel", "dkdv_kernel", "dq_kernel"):
+                if part in entry:
+                    kind = "bf16" if "bfloat16" in entry else "fp32"
+                    dim = entry.split("Li")[-1].split("E")[0]
+                    entry = f"{part}<{kind}, {dim}>"
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{entry}: {ln.strip()}")
+    return out
+
+
+def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
+                     seed: int = 11, card: str = "") -> Dict:
+    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` on
+    the same inputs (the forward kernel's o and lse) within BWD_ATOL by
+    ``bwd_err`` (each gradient element's error over the summed magnitude
+    of its terms), in bf16 and fp32, at each case; each timed beside its
+    bound, the plain version's time and SDPA's backward.  At every case
+    each of ``BWD_FAULTS`` must fail that hold.  All readings are logged
+    before the rules are enforced.  Returns the bf16 record of the first
+    case (the result line's), the fp32 one under ``fp32`` and every case
+    under ``cases``."""
+    device = torch.device(device)
+    recs, failed = [], []
+    for i, (shape, causal) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            b, h, hkv, sq, sk, d = shape
+            gen = torch.Generator(device).manual_seed(seed + i)
+            q, k, v, do = (torch.randn(s, generator=gen, device=device)
+                           .to(dtype) for s in
+                           ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                            (b, h, sq, d)))
+            o, lse = _forward_lse(q, k, v, causal)
+            args = (q, k, v, o, lse, do, causal)
+            got = flash_attention_bwd(*args)
+            want = flash_attention_bwd_plain(*args)
+            scale = flash_attention_bwd_scale(*args)
+            err = bwd_err(got, want, scale)
+            errs = [float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got, want)]
+            del got
+            planted = {}
+            for name, fault in BWD_FAULTS.items():
+                planted[name] = bwd_err(fault(flash_attention_bwd)(*args),
+                                        want, scale)
+            del want, scale
+            limit = BWD_ATOL[dtype]
+            if not err <= limit:
+                failed.append(f"{shape} {dtype} causal={causal}: {err}")
+            failed += [f"{name} passed at {shape} {dtype}: {e}"
+                       for name, e in planted.items() if not e > limit]
+            bound, by, route = flash_bwd_bound(shape, dtype, causal)
+            r = {"shape": list(shape), "causal": causal,
+                 "dtype": str(dtype).replace("torch.", ""),
+                 "max_abs_err": max(errs), "scaled_err": err,
+                 "max_abs_err_dq_dk_dv": errs, "planted_err": planted,
+                 "ms": _time_ms(lambda: flash_attention_bwd(*args), device,
+                                reps),
+                 "plain_ms": _time_ms(lambda: flash_attention_bwd_plain(
+                     *args), device, reps),
+                 "bound_ms": bound, "bound_by": by, "bound_route": route,
+                 "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, device,
+                                            reps)}
+            tflops = flash_bwd_flops(shape, causal) / r["ms"] * 1e-9
+            log(f"flash_grad {shape} {dtype} causal={causal} on "
+                f"{card or device}: max abs err dq / dk / dv "
+                f"{errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g}; bwd_err "
+                f"{err:.4g} (limit {limit}); planted faults: "
+                + ", ".join(f"{n} {e:.4g}" for n, e in planted.items())
+                + f"; {r['ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
+                f"{bound / r['ms']:.1%} of the bound {bound:.4f} ms by {by} "
+                f"on {route} (plain {r['plain_ms']:.4f}, SDPA backward "
+                f"{r['library_ms']:.4f})")
+            recs.append(r)
+            del q, k, v, do, o, lse, args
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"flash_grad: {failed}")
+    for line in bwd_registers():
+        log(f"flash_grad registers: {line}")
+    rec = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": BWD_INFO[0], "replaces": BWD_INFO[1],
+           "replaces_note": "the gradient of that kernel, which has no VJP",
+           "launches": 0,
+           **{k: recs[0][k] for k in TIMED_KEYS + ("library_ms",)},
+           "fp32": {k: recs[1][k] for k in TIMED_KEYS + ("library_ms",)},
+           "cases": recs}
+    return rec
+
+
+def _model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model operations of one train step: 6 N T for the weights plus
+    the attention products (QK^T and PV, forward once and backward
+    twice) over the causal pairs; rematerialisation not counted."""
+    attn = 3 * cfg.n_layers * flash_flops(attn_shape(cfg, batch, seq))
+    return 6.0 * n_params * batch * seq + attn
+
+
+def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
+                     seq: int = TRAIN_SEQ, warmup: int = TRAIN_WARMUP,
+                     steps: int = TRAIN_STEPS, seed: int = 0,
+                     card: str = "") -> Dict:
+    """``make_train_step`` on ``cfg`` (seeded weights in the config's
+    dtype, AdamW by ``for_config`` with its fp32 master copy, ``remat``
+    on) over batches of the ported pipeline: ``warmup`` steps, then
+    ``steps`` steps timed on the host clock, synced, every model
+    kernel's count set to 0 just before and read just after.  Loss and
+    grad norm finite; on the card ``flash_attention`` launched twice a
+    layer a step (the forward and its recomputation) and the backward
+    once.  Returns the launches and the measurements."""
+    device = torch.device(device)
+    params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
+    n_params = sum(p.numel() for p in params.parameters())
+    optimizer = opt_mod.for_config(cfg)
+    state = optimizer.init(dict(params.named_parameters()))
+    data = ShardedSyntheticDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
+    step = make_train_step(cfg, optimizer, device=device)
+    metrics = []
+    for i in range(warmup):
+        params, state, m = step(params, state, data.global_batch_at(i))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for k in MODEL_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        params, state, m = step(params, state, data.global_batch_at(i))
+    _sync(device)
+    dt = (time.perf_counter() - t0) / steps
+    metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    launches = {k.__name__: k.launches for k in MODEL_KERNELS
+                if k.__name__ != "ssd_chunk"}
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+    del params, state
+    per_step = {n: c / steps for n, c in launches.items()}
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers} if device.type == "cuda" \
+        else {"flash_attention": 0, "flash_attention_bwd": 0}
+    if per_step != want:
+        raise AssertionError(f"train step launched {per_step} a step, "
+                             f"want {want}")
+    if not all(np.isfinite(x) for pair in metrics for x in pair):
+        raise AssertionError(f"train step: non-finite loss or grad norm "
+                             f"{metrics}")
+    tokens = batch * seq
+    flops = _model_flops(cfg, n_params, batch, seq)
+    mfu = flops / dt / PEAK_FLOPS[torch.bfloat16]
+    log(f"train_step {cfg.name} {cfg.dtype} {n_params / 1e9:.3f}B params, "
+        f"batch {batch}x{seq}, AdamW (fp32 master), remat {cfg.remat} on "
+        f"{card or device}: {dt:.4f} s a step, {tokens / dt:.1f} tokens/s, "
+        f"model FLOP share {mfu:.2%} of 989 TFLOP/s ({flops:.4g} a step); "
+        f"peak memory {peak if peak is None else f'{peak / 2**30:.2f} GiB'}"
+        f"; loss / grad norm by step {metrics}; launches a step {per_step}")
+    return {"launches": launches, "s_per_step": dt, "tokens_per_s":
+            tokens / dt, "mfu": mfu, "peak_bytes": peak,
+            "n_params": n_params, "metrics": metrics}
+
+
+def _loss_and_grads(cfg, params, batch):
+    params.requires_grad_(True)
+    named = dict(params.named_parameters())
+    loss = api.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.item(), dict(zip(named, grads))
+
+
+def phase_train_consistency(device, cfg, shape=TRAIN_CONSISTENCY_SHAPE,
+                            seed: int = 6, card: str = "") -> Dict:
+    """In fp32, one train step's loss and every parameter's gradient
+    (the train step's ``api.loss_fn`` under autograd) with the attention
+    kernels, against the same with ``mha`` on the plain version
+    (``plain_kernel``; torch autograd through it): the loss within
+    TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_TOL of its max abs.
+    The kernels' counts are set to 0 just before the kernel run and read
+    just after (2 forward and 1 backward launches a layer on the card);
+    each forward and backward kernel call is held to its plain version
+    (``hold_calls``) on copies of its own inputs."""
+    device = torch.device(device)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    b, s = shape
+    params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
+    data = ShardedSyntheticDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.global_batch_at(0).items()}
+    calls: Dict[tuple, tuple] = {}
+    for k in MODEL_KERNELS:
+        k.launches = 0
+    with record_calls(cfg, calls, backward=True):
+        loss, grads = _loss_and_grads(cfg, params, batch)
+    _sync(device)
+    launches = {k.__name__: k.launches for k in MODEL_KERNELS
+                if k.__name__ != "ssd_chunk"}
+    with plain_kernel(cfg):
+        plain_loss, plain = _loss_and_grads(cfg, params, batch)
+    del params
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers} if device.type == "cuda" \
+        else {"flash_attention": 0, "flash_attention_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"train_consistency launched {launches}, "
+                             f"want {want}")
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    worst, worst_name = 0.0, ""
+    for name, w in plain.items():
+        rel = float((grads[name] - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    del grads, plain
+    if not loss_rel <= TRAIN_LOSS_RTOL or not worst <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"train_consistency: loss rel {loss_rel:.3g} "
+                             f"(limit {TRAIN_LOSS_RTOL}), worst gradient "
+                             f"{worst_name} {worst:.3g} of its max (limit "
+                             f"{TRAIN_GRAD_TOL})")
+    log(f"train_consistency {cfg.name} fp32 {cfg.n_layers} layers, batch "
+        f"{b}x{s} on {card or device}: loss {loss:.7g}, plain attention "
+        f"{plain_loss:.7g} (rel {loss_rel:.3g}); worst gradient "
+        f"{worst_name} {worst:.3g} of its max abs; launches {launches}")
+    held = hold_calls(calls, f"train_consistency {cfg.name}")
+    return {"launches": launches, "loss_rel": loss_rel, "grad_rel": worst,
+            "held": held}
+
+
+def phase_trainer(device, arch: str = TRAIN_ARCH,
+                  layers: int = TRAIN_CUT_LAYERS, steps: int = TRAINER_STEPS,
+                  every: int = TRAINER_EVERY, smoke: bool = False,
+                  card: str = "") -> Dict:
+    """``launch/train.py``'s ``main`` on ``arch`` at full width cut to
+    ``layers`` layers, ``steps`` steps with a checkpoint every
+    ``every`` (``smoke``: the smoke config, for a CPU rehearsal), in a
+    temporary directory removed afterwards; then a fresh
+    ``Trainer`` restores the checkpoint at ``every`` and trains to
+    ``steps``.  The resumed last loss within rel 1e-4 of the
+    uninterrupted one (the reference's property; whether it is the same
+    bits is logged).  Checkpoint seconds are logged apart from step
+    seconds.  Returns the launches of both runs and the losses."""
+    device = torch.device(device)
+    work = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        for k in MODEL_KERNELS:
+            k.launches = 0
+        args = ["--arch", arch, "--layers", str(layers), "--steps",
+                str(steps), "--ckpt-every", str(every), "--log-every", "1",
+                "--ckpt-dir", work, "--device", str(device)] + \
+            (["--smoke"] if smoke else [])
+        t0 = time.perf_counter()
+        first = train_main(args)
+        first_s = time.perf_counter() - t0
+        resumed = Trainer(first.cfg, dataclasses.replace(first.tcfg),
+                          device=device)
+        t0 = time.perf_counter()
+        state = resumed.train(state=resumed.restore_or_init(step=every))
+        _sync(device)
+        resumed_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in MODEL_KERNELS
+                    if k.__name__ != "ssd_chunk"}
+        want_loss = first.metrics_log[-1]["loss"]
+        got = resumed.metrics_log[-1]
+        if state.step != steps or got["step"] != steps or \
+                resumed.metrics_log[0]["step"] != every + 1 or \
+                not abs(got["loss"] - want_loss) <= 1e-4 * abs(want_loss):
+            raise AssertionError(f"trainer: resumed to {state.step} with "
+                                 f"loss {got['loss']} at step {got['step']},"
+                                 f" uninterrupted {want_loss}")
+        step_s = [r["s_per_step"] for r in first.metrics_log]
+        log(f"trainer {first.cfg.name} {layers} layers, batch "
+            f"{first.tcfg.global_batch}x{first.tcfg.seq_len} on "
+            f"{card or device}: {steps} steps, checkpoint every {every}: "
+            f"{first_s:.2f} s; s a step {[round(x, 4) for x in step_s]}; "
+            f"checkpoint writes "
+            f"{[round(x, 3) for x in first.ckpt.write_seconds]}"
+            f" s (loop held {[round(x, 3) for x in first.save_seconds]} s); "
+            f"resumed from step {every} in a fresh Trainer: {resumed_s:.2f} s"
+            f", step-{steps} loss {got['loss']!r} against {want_loss!r} "
+            f"uninterrupted: bit-equal {got['loss'] == want_loss}; launches "
+            f"{launches}")
+        return {"launches": launches, "loss": want_loss,
+                "resumed_loss": got["loss"],
+                "bit_equal": got["loss"] == want_loss,
+                "write_s": list(first.ckpt.write_seconds),
+                "step_s": step_s}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def olmo_train_config(layers: Optional[int] = None):
+    """``TRAIN_ARCH``'s published config, its depth cut to ``layers``."""
+    cfg = TC.get(TRAIN_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def phase_training(device, card: str) -> Tuple[Dict, Dict[str, Dict],
+                                               Dict[str, Dict]]:
+    """Phases 30-33: flash_grad, train_step (OLMo-1B, full), then
+    train_consistency and trainer at ``TRAIN_CUT_LAYERS`` layers.
+    Returns the backward's record, each path's launches and the
+    consistency result."""
+    rec = _timed("flash_grad", card, phase_flash_grad, device, card=card)
+    torch.cuda.empty_cache()
+    full = olmo_train_config()
+    step = _timed("train_step", card, phase_train_step, device, full,
+                  card=card)
+    torch.cuda.empty_cache()
+    cut = olmo_train_config(TRAIN_CUT_LAYERS)
+    log(f"training: {cut.name} = {TRAIN_ARCH} with n_layers "
+        f"{full.n_layers} -> {TRAIN_CUT_LAYERS} in phases "
+        f"train_consistency and trainer (widths, heads and vocab unchanged)")
+    cons = _timed("train_consistency", card, phase_train_consistency,
+                  device, cut, card=card)
+    torch.cuda.empty_cache()
+    trainer = _timed("trainer", card, phase_trainer, device, card=card)
+    torch.cuda.empty_cache()
+    rec["train_step"] = {k: step[k] for k in (
+        "s_per_step", "tokens_per_s", "mfu", "peak_bytes", "n_params")}
+    rec["trainer"] = {k: trainer[k] for k in ("loss", "resumed_loss",
+                                              "bit_equal", "write_s")}
+    # launches are summed over the paths by ``attach_model_paths``
+    rec["launches_by_path"] = {}
+    paths = {"train_step": step["launches"],
+             "train_consistency": cons["launches"],
+             "trainer": trainer["launches"]}
+    return rec, paths, {"train_consistency": cons}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2588,16 +3090,16 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    kernels = phase_kernels("cuda")
-    phase_oracle("cuda")
-    main_run = phase_main("cuda", card=smi)
+    kernels = _timed("kernels", smi, phase_kernels, "cuda")
+    _timed("oracle", smi, phase_oracle, "cuda")
+    main_run = _timed("main", smi, phase_main, "cuda", card=smi)
     for rec in kernels:
         rec["launches"] = main_run["launches"][rec["name"]]
         rec.pop("shapes")
     replays = phase_replays("cuda", main_run)
     for rec in kernels:
         rec["replay"] = replays[rec["name"]]
-    graph = phase_graph("cuda", card=smi)
+    graph = _timed("graph", smi, phase_graph, "cuda", card=smi)
     replays = phase_replays("cuda", graph, path="graph")
     for rec in kernels:
         n = graph["launches"][rec["name"]]
@@ -2605,34 +3107,41 @@ def main() -> int:
         rec["launches"] += n
         rec["graph"] = {"replay": replays[rec["name"]],
                         "sizes": graph["sizes"].get(rec["name"])}
-    dse = phase_dse("cuda", card=smi)
+    dse = _timed("dse", smi, phase_dse, "cuda", card=smi)
     for rec in kernels:
         n = dse["launches"][rec["name"]]
         rec["launches_by_path"]["dse"] = n
         rec["launches"] += n
-    throughput = phase_throughput("cuda", card=smi)["launches"]
+    throughput = _timed("throughput", smi, phase_throughput, "cuda",
+                        card=smi)["launches"]
     log("segmented_reduce ran in host numpy (no device kernel yet)")
     cfg = TC.get(MODEL_ARCH)
-    ssd_rec = phase_ssd_kernel("cuda", card=smi)
-    prefill = phase_prefill("cuda", cfg, PREFILL_BATCH, PREFILL_SEQ, card=smi)
+    ssd_rec = _timed("ssd_kernel", smi, phase_ssd_kernel, "cuda", card=smi)
+    prefill = _timed("prefill", smi, phase_prefill, "cuda", cfg,
+                     PREFILL_BATCH, PREFILL_SEQ, card=smi)
     ssd_rec["launches"] = prefill["launches"]["ssd_chunk"]
     kernels.append(ssd_rec)
-    cons = {"consistency": phase_consistency("cuda", cfg, card=smi)}
-    phase_serve("cuda", cfg, card=smi)
-    flash_rec = phase_flash_kernel("cuda", card=smi)
-    bsmm_rec = phase_bsmm_kernel("cuda", card=smi)
+    cons = {"consistency": _timed("consistency", smi, phase_consistency,
+                                  "cuda", cfg, card=smi)}
+    _timed("serve", smi, phase_serve, "cuda", cfg, card=smi)
+    flash_rec = _timed("flash_kernel", smi, phase_flash_kernel, "cuda",
+                       card=smi)
+    bsmm_rec = _timed("bsmm_kernel", smi, phase_bsmm_kernel, "cuda",
+                      card=smi)
     torch.cuda.empty_cache()
-    bsmm_rec["launches"] = phase_kernels_bench("cuda")["block_sparse_matmul"]
+    bsmm_rec["launches"] = _timed("kernels_bench", smi, phase_kernels_bench,
+                                  "cuda")["block_sparse_matmul"]
     dense = TC.get(DENSE_ARCH)
-    prefill = phase_prefill("cuda", dense, PREFILL_BATCH, PREFILL_SEQ,
-                            card=smi)
+    prefill = _timed("dense_prefill", smi, phase_prefill, "cuda", dense,
+                     PREFILL_BATCH, PREFILL_SEQ, card=smi)
     flash_rec["launches"] = prefill["launches"]["flash_attention"]
     kernels += [flash_rec, bsmm_rec]
     torch.cuda.empty_cache()
-    cons["dense_consistency"] = phase_consistency(
-        "cuda", dense, seq=DENSE_CONSISTENCY_SEQ, card=smi)
+    cons["dense_consistency"] = _timed(
+        "dense_consistency", smi, phase_consistency, "cuda", dense,
+        seq=DENSE_CONSISTENCY_SEQ, card=smi)
     torch.cuda.empty_cache()
-    phase_serve("cuda", dense, card=smi)
+    _timed("dense_serve", smi, phase_serve, "cuda", dense, card=smi)
     torch.cuda.empty_cache()
     flash_rec["whisper"], jamba_ssd = _timed(
         "family_kernels", smi, phase_family_kernels, "cuda", card=smi)
@@ -2645,6 +3154,10 @@ def main() -> int:
     cons.update(family_cons)
     paths.update({p: cons[p]["launches"]
                   for p in ("consistency", "dense_consistency")})
+    bwd_rec, train_paths, train_cons = phase_training("cuda", smi)
+    kernels.append(bwd_rec)
+    paths.update(train_paths)
+    cons.update(train_cons)
     attach_model_paths(kernels, paths, cons, throughput)
     log(f"total {time.perf_counter() - t0:.1f} s on {smi}")
     log(smi)

@@ -6,7 +6,9 @@ leaf iteration), never by importing the reference, and rebuilt as this
 package's objects.  A test feeds one set of reference inputs through
 both simulators this way, so that they simulate exactly the same data.
 Model parameters arrive as the reference's pytree of numpy arrays and
-become this package's modules (``model_params_from_reference``).
+become this package's modules (``model_params_from_reference``); an
+optimizer state over them becomes this package's state over the module's
+parameter names (``optimizer_state_from_reference``).
 """
 from __future__ import annotations
 
@@ -107,6 +109,65 @@ def model_params_from_reference(tree: Dict[str, Any], cfg,
     bit."""
     from .models import api
 
+    src = _reference_flat(tree, cfg)
+    model = api.init(cfg, None, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name not in src:
+                raise KeyError(f"reference tree has no {name}")
+            t = tensor_from_array(src.pop(name))
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: reference {t.dtype} "
+                                 f"{tuple(t.shape)}, port {p.dtype} "
+                                 f"{tuple(p.shape)}")
+            p.copy_(t)
+    if src:
+        raise KeyError(f"reference parameters the port lacks: "
+                       f"{sorted(src)}")
+    return model
+
+
+def optimizer_state_from_reference(tree: Dict[str, Any], cfg,
+                                   device=None) -> Dict[str, Any]:
+    """The reference optimizer's state over ``cfg``'s model parameters,
+    given as numpy arrays -- AdamW's ``{"step", "m", "v", "master"}`` or
+    Adafactor's ``{"step", "v"}`` (a ``{"vr", "vc"}`` or ``{"v"}`` dict a
+    parameter) -- as this package's state (``optim.optimizers``) over the
+    port module's parameter names, on ``device`` (the CPU by default).
+    Each per-parameter tree is read as ``model_params_from_reference``
+    reads the parameters; every leaf must be present, values bit for
+    bit."""
+    from .models import api
+
+    names = [n for n, _ in api.init(cfg, None, "meta").named_parameters()]
+    out: Dict[str, Any] = {
+        "step": tensor_from_array(np.asarray(tree["step"])).to(device)}
+    for key, sub in tree.items():
+        if key == "step":
+            continue
+        flat = _reference_flat(sub, cfg)
+        per: Dict[str, Any] = {}
+        for n in names:
+            if n in flat:
+                per[n] = tensor_from_array(flat.pop(n)).to(device)
+                continue
+            parts = {part: tensor_from_array(flat.pop(f"{n}.{part}"))
+                     .to(device) for part in ("v", "vc", "vr")
+                     if f"{n}.{part}" in flat}
+            if not parts:
+                raise KeyError(f"reference state {key!r} has no {n}")
+            per[n] = parts
+        if flat:
+            raise KeyError(f"reference state {key!r} entries the port "
+                           f"lacks: {sorted(flat)}")
+        out[key] = per
+    return out
+
+
+def _reference_flat(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """The reference's parameter pytree (or a tree over its parameters)
+    flattened to the port's dotted parameter names, each per-layer stack
+    unstacked into its layers."""
     src: Dict[str, Any] = {}
     stacks = _layer_stacks(cfg)
     for key, sub in tree.items():
@@ -123,22 +184,7 @@ def model_params_from_reference(tree: Dict[str, Any], cfg,
             raise ValueError(f"{len(sub)} {key} for {stacks[key]} layers")
         for i, blk in enumerate(sub):
             src.update({f"{key}.{i}.{k}": v for k, v in blk.items()})
-
-    model = api.init(cfg, None, device)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name not in src:
-                raise KeyError(f"reference tree has no {name}")
-            t = tensor_from_array(src.pop(name))
-            if t.shape != p.shape or t.dtype != p.dtype:
-                raise ValueError(f"{name}: reference {t.dtype} "
-                                 f"{tuple(t.shape)}, port {p.dtype} "
-                                 f"{tuple(p.shape)}")
-            p.copy_(t)
-    if src:
-        raise KeyError(f"reference parameters the port lacks: "
-                       f"{sorted(src)}")
-    return model
+    return src
 
 
 def carry(obj: Any) -> Any:

@@ -235,6 +235,9 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        #: seconds each save took to write its checkpoint (an async
+        #: save's on its worker thread, its snapshot to host apart)
+        self.write_seconds: List[float] = []
 
     # ------------------------------------------------------------------ #
     def save_async(self, step: int, tree: Params,
@@ -248,8 +251,10 @@ class CheckpointManager:
 
         def work():
             try:
+                t0 = time.perf_counter()
                 save_checkpoint(self.directory, step, host_tree,
                                 extra_meta)
+                self.write_seconds.append(time.perf_counter() - t0)
                 self._gc()
             except BaseException as ex:          # surfaced on next wait()
                 self._error = ex
@@ -260,7 +265,9 @@ class CheckpointManager:
     def save(self, step: int, tree: Params,
              extra_meta: Optional[Dict[str, Any]] = None) -> Path:
         self.wait()
+        t0 = time.perf_counter()
         path = save_checkpoint(self.directory, step, tree, extra_meta)
+        self.write_seconds.append(time.perf_counter() - t0)
         self._gc()
         return path
 

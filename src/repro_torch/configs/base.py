@@ -61,9 +61,13 @@ class ModelConfig:
     seq_parallel: bool = False
     # query-block size for chunked reference attention (None = one block)
     attn_chunk: Optional[int] = 1024
-    # The reference's scan_layers, remat and use_kernels switches have no
-    # counterpart: the port runs its layers in a Python loop, has no
-    # backward yet, and ``ssd`` always launches its kernel on the card.
+    # rematerialize each layer's activations in backward (train memory):
+    # under autograd every family's forward runs each block (a hybrid's
+    # superblock) under torch.utils.checkpoint
+    remat: bool = True
+    # The reference's scan_layers and use_kernels switches have no
+    # counterpart: the port runs its layers in a Python loop, and its
+    # attention and ``ssd`` always launch their kernels on the card.
     dtype: str = "bfloat16"
 
     @property

@@ -9,6 +9,8 @@ Each kernel has its source in ``csrc/``, is built at first use
   * ``ssd_chunk``           (``ssd_chunk.py``)    replaces ``ssd_chunk``
   * ``flash_attention``     (``flash_attention.py``) replaces
                             ``flash_attention``
+  * ``flash_attention_bwd`` (``flash_attention_bwd.py``) its gradient,
+                            which the reference's kernel lacks
   * ``block_sparse_matmul`` (``block_sparse_matmul.py``) replaces
                             ``block_sparse_matmul``
 
@@ -16,13 +18,18 @@ A wrapper launches its kernel for tensors on a CUDA device, takes the
 plain version for tensors on the CPU, and counts its launches on its
 ``launches`` attribute.  ``backends.py`` lowers the vector engine's five
 seams onto the first three; ``models/ssm.py`` runs the fourth,
-``models/layers.py`` the fifth, and ``bench/kernels_bench.py`` all six.
+``models/layers.py`` the fifth (and, under autograd, its gradient), and
+``bench/kernels_bench.py`` the six forward kernels.
 ``ref.py`` holds the oracles of the last three.
 """
 from .block_sparse_matmul import (block_sparse_matmul,
                                   block_sparse_matmul_dense_a,
                                   block_sparse_matmul_plain, compact_tiles)
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (FlashAttention, flash_attention,
+                              flash_attention_lse_plain,
+                              flash_attention_plain)
+from .flash_attention_bwd import (flash_attention_bwd,
+                                  flash_attention_bwd_plain)
 from .merge import merge_path, merge_path_plain
 from .multi_merge import multi_merge_ranks, multi_merge_ranks_plain
 from .search import search, search_plain
@@ -31,12 +38,14 @@ from .ssd_chunk import ssd_chunk, ssd_chunk_plain
 #: the simulator's seam kernels, whose ``launches`` counters a
 #: simulation reads
 KERNELS = (search, merge_path, multi_merge_ranks)
-#: the model path's kernels, whose counters a prefill reads
-MODEL_KERNELS = (ssd_chunk, flash_attention)
+#: the model path's kernels, whose counters a prefill or a train step reads
+MODEL_KERNELS = (ssd_chunk, flash_attention, flash_attention_bwd)
 
-__all__ = ["KERNELS", "MODEL_KERNELS", "block_sparse_matmul",
-           "block_sparse_matmul_dense_a", "block_sparse_matmul_plain",
-           "compact_tiles", "flash_attention", "flash_attention_plain",
+__all__ = ["FlashAttention", "KERNELS", "MODEL_KERNELS",
+           "block_sparse_matmul", "block_sparse_matmul_dense_a",
+           "block_sparse_matmul_plain", "compact_tiles", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_lse_plain", "flash_attention_plain",
            "merge_path", "merge_path_plain", "multi_merge_ranks",
            "multi_merge_ranks_plain", "search", "search_plain", "ssd_chunk",
            "ssd_chunk_plain"]

@@ -7,7 +7,9 @@ build takes seconds), and loaded with ``ctypes``.  The libraries go to
 their source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source or header is rebuilt and an unchanged one is reused.
 Nothing here runs at import time, and nothing catches a failed build: it
-raises with the compiler's output.  Builds and loads hold one module
+raises ``KernelError`` with the compiler's output, as a failed launch
+does (``check``), so that no caller that recovers from a ``RuntimeError``
+(the trainer's crash recovery) can take either for a passing fault.  Builds and loads hold one module
 lock, so threads that reach an unbuilt kernel at once (a sweep's thread
 executor) build it once.
 
@@ -32,10 +34,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 
 #: the kernel libraries: one per source file in csrc/
 SOURCES = ("search", "merge_path", "multi_merge", "ssd_chunk",
-           "flash_attention", "block_sparse_matmul")
+           "flash_attention", "flash_attention_bwd", "block_sparse_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+
+class KernelError(RuntimeError):
+    """A kernel that did not build, a launch that returned a CUDA error,
+    or a call no kernel serves (``ssd_chunk`` under autograd): never
+    retried."""
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: held by ``build`` and ``_load``: one thread compiles or loads at a time
@@ -52,8 +62,8 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
-                       "built at first use and need the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels of repro_torch are "
+                      "built at first use and need the CUDA toolkit")
 
 
 def _target(name: str) -> Path:
@@ -98,8 +108,8 @@ def _build_locked(names) -> Dict[str, Path]:
             else:
                 os.replace(tmp, todo[n])
         if failed:
-            raise RuntimeError("CUDA kernel build failed:\n"
-                               + "\n".join(failed))
+            raise KernelError("CUDA kernel build failed:\n"
+                              + "\n".join(failed))
     return targets
 
 
@@ -131,5 +141,5 @@ def check(name: str, code: int) -> None:
     """Raise when a launch of library ``name`` returned a CUDA error."""
     if code != 0:
         msg = _load(name).repro_error_string(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
-                           f"{code} ({msg})")
+        raise KernelError(f"{name} kernel launch failed: CUDA error "
+                          f"{code} ({msg})")

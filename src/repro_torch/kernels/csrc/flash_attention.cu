@@ -11,6 +11,12 @@
 // sequence strides, so the model's [b, s, h, d] projections are read and
 // written in place.  The carry (m, l, acc) is fp32.
 //
+// Given a pointer for it, both routes also write each row's log-sum-exp,
+// lse[b, h, i] = ln sum_j exp(s[j]) in fp32 over the keys the row sees
+// (-inf for a row with none), which the backward kernel
+// (flash_attention_bwd.cu) recomputes the softmax weights from.  The
+// inference paths pass null and nothing more is written.
+//
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py::
 // _attn_kernel (pl.pallas_call at flash_attention.py:113, grid
 // (b, h, nq, nk)).
@@ -143,6 +149,7 @@ namespace wg32 {
 constexpr int kThreads = 256;       // two warpgroups
 constexpr int kBq = 128;            // queries a CTA, 64 a warpgroup
 constexpr float kNegInf = -1e30f;   // the reference's mask value
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Q's hi and lo parts are wgmma A fragments in registers at d 32; at d 64
 // hi stays in registers and lo in a shared-memory plane, read by wgmma, and
@@ -198,9 +205,9 @@ __device__ __forceinline__ int plane_off(int r, int c) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int B,
-            int H, int Hkv, int sq, int sk, int causal, float scale_log2,
-            Strides st) {
+            const float* __restrict__ v, float* __restrict__ o,
+            float* __restrict__ lse, int B, int H, int Hkv, int sq, int sk,
+            int causal, float scale_log2, Strides st) {
   using C = Cfg<D>;
   constexpr int kBk = C::kBk, kLd = C::kLd, kVec = D / 4;
   extern __shared__ uint8_t smem_wg[];
@@ -426,6 +433,11 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+  if (lse != nullptr && t == 0) {           // ln sum = (m + log2 l) ln 2
+    float* lr = lse + ((int64_t)bi * H + h) * sq;
+    if (r0 < sq) lr[r0] = l0 == 0.f ? -INFINITY : (m0 + log2f(l0)) * kLn2;
+    if (r1 < sq) lr[r1] = l1 == 0.f ? -INFINITY : (m1 + log2f(l1)) * kLn2;
+  }
   float* og = o + bi * st.ob + h * st.oh;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -440,17 +452,17 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int sq, int sk, int causal, float scale,
-           const Strides& st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int Hkv, int sq, int sk, int causal,
+           float scale, const Strides& st, cudaStream_t stream) {
   using C = Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
       attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (int64_t)B * H * ((sq + kBq - 1) / kBq);
   attn_kernel<D><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, B, H,
-      Hkv, sq, sk, causal, scale * 1.4426950408889634f, st);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, B,
+      H, Hkv, sq, sk, causal, scale * 1.4426950408889634f, st);
   return (int)cudaGetLastError();
 }
 
@@ -493,6 +505,7 @@ struct Params {
   int B, H, Hkv, sq, sk, causal;
   float scale_log2;                 // 1 / sqrt(d) / ln 2: exp via ex2
   int64_t ob, oh, os;               // output strides, elements
+  float* lse;                       // [B, H, sq] or null
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -987,6 +1000,14 @@ attn_kernel(const __grid_constant__ CUtensorMap tq,
       const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
       __nv_bfloat16* og = o + wk.bi * p.ob + wk.h * p.oh;
       const int r0 = r.r0, c2 = r.c2;
+      if (p.lse != nullptr && c2 == 0) {         // ln sum = (m + log2 l) ln 2
+        float* lr = p.lse + ((int64_t)wk.bi * p.H + wk.h) * p.sq;
+        constexpr float kLn2 = 0.6931471805599453f;
+        if (r0 < p.sq)
+          lr[r0] = l0 == 0.f ? -INFINITY : (r.m0 + log2f(l0)) * kLn2;
+        if (r0 + 8 < p.sq)
+          lr[r0 + 8] = l1 == 0.f ? -INFINITY : (r.m1 + log2f(l1)) * kLn2;
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         if (r0 < p.sq)
@@ -1059,9 +1080,9 @@ int encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int sq, int sk, int causal, float scale,
-           const int64_t* st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int Hkv, int sq, int sk, int causal,
+           float scale, const int64_t* st, cudaStream_t stream) {
   using T = Tile<D>;
   const CUtensorMapSwizzle swizzle = T::kSwizzle == 128
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -1083,8 +1104,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::kSmem);
   if (e != cudaSuccess) return (int)e;
-  const Params p{B, H, Hkv, sq, sk, causal,
-                 scale * 1.4426950408889634f, st[9], st[10], st[11]};
+  const Params p{B, H, Hkv, sq, sk, causal, scale * 1.4426950408889634f,
+                 st[9], st[10], st[11], lse};
   int device = 0, sms = 0;
   e = cudaGetDevice(&device);
   if (e == cudaSuccess)
@@ -1112,26 +1133,29 @@ int by_head_dim(int d, Fn&& fn) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o).  strides: 12 int64,
 // the batch, head and sequence strides of q, k, v and o, in elements.
 // bf16 needs 16-byte-aligned bases and strides (TMA); the wrapper copies
-// a view that has neither.
+// a view that has neither.  lse: a contiguous fp32 [B, H, sq] for the
+// rows' log-sum-exp, or null.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int H,
-                                     int Hkv, int sq, int sk, int d,
-                                     int causal, float scale, int dtype,
-                                     const int64_t* strides, void* stream) {
+                                     const void* v, void* o, void* lse,
+                                     int B, int H, int Hkv, int sq, int sk,
+                                     int d, int causal, float scale,
+                                     int dtype, const int64_t* strides,
+                                     void* stream) {
   if ((int64_t)B * H * sq == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
     return by_head_dim(d, [&](auto D) {
-      return hopper::launch<decltype(D)::value>(q, k, v, o, B, H, Hkv, sq,
-                                                sk, causal, scale, strides,
-                                                s);
+      return hopper::launch<decltype(D)::value>(q, k, v, o, (float*)lse, B,
+                                                H, Hkv, sq, sk, causal, scale,
+                                                strides, s);
     });
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   return by_head_dim(d, [&](auto D) {
-    return wg32::launch<decltype(D)::value>(q, k, v, o, B, H, Hkv, sq, sk,
-                                            causal, scale, st, s);
+    return wg32::launch<decltype(D)::value>(q, k, v, o, (float*)lse, B, H,
+                                            Hkv, sq, sk, causal, scale, st,
+                                            s);
   });
 }
 

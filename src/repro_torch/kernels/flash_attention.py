@@ -15,6 +15,16 @@ attention rounds them.  In fp32 it runs both products on the TF32 tensor
 cores as 3xTF32 (``wgmma``; each operand split into a TF32 high and
 low part, about 2^-21 of a product), with the scores, the carry and the
 softmax weights kept in fp32: within 2e-5 of the plain version.
+
+Under autograd (an input that requires a gradient, grad mode on) the
+call is ``FlashAttention``, a ``torch.autograd.Function``: its forward
+launches the kernel with each row's log-sum-exp as a second output
+(``flash_attention_lse_plain``'s function), saves q, k, v, o and it, and
+its backward launches the hand-written backward kernel
+(``flash_attention_bwd``).  Without autograd nothing more is written.
+On the CPU, ``flash_attention`` is the plain version, and under autograd
+``FlashAttention`` on the plain versions of both kernels, so the CPU
+tests take the card's gradient path with the plain versions in it.
 """
 from __future__ import annotations
 
@@ -26,9 +36,9 @@ import torch
 from . import build
 from .ref import attention_ref
 
-#: repro_flash_attention(q, k, v, o, B, H, Hkv, sq, sk, d, causal, scale,
-#: dtype, strides, stream)
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + \
+#: repro_flash_attention(q, k, v, o, lse, B, H, Hkv, sq, sk, d, causal,
+#: scale, dtype, strides, stream)
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + \
     (ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 #: the kernel's dtype codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,6 +84,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_ref(q, k, v, causal)
 
 
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True
+                              ) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled scores, ln sum_j exp(q_i .
+    k_j / sqrt(d)) over the keys it sees, fp32 [b, h, sq] (-inf for a
+    row with none): what the forward kernel writes for the backward."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qr = q.reshape(b, hkv, h // hkv, sq, d).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qr, k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.arange(sq, device=q.device)[:, None] >= \
+            torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(~mask, -math.inf)
+    return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+
+
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` as it is when the kernel can read it in place (the last
     dimension contiguous; base and strides on 16 bytes, as TMA needs in
@@ -85,25 +112,21 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """``flash_attention_plain``'s function; on a CUDA device, one
-    launch of the hand-written kernel (counted on
-    ``flash_attention.launches``).  The output has ``q``'s layout, so a
-    [b, h, s, d] view of a [b, s, h, d] tensor comes back as one."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, with_lse: bool):
+    """One launch of the kernel on checked CUDA tensors (counted on
+    ``flash_attention.launches``): (o, lse or None, and q, k, v as the
+    kernel read them)."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     q, k, v = (_kernel_layout(t) for t in (q, k, v))
     o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if o.numel() == 0:
-        return o
+        return o, lse, (q, k, v)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
                                       for s in t.stride()[:3]))
     fn = build.function("flash_attention", "repro_flash_attention",
@@ -111,10 +134,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attention.launches += 1
     build.check("flash_attention", fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, hkv,
-        sq, sk, d, int(causal), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, hkv, sq, sk, d,
+        int(causal), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
         ctypes.addressof(strides), stream))
-    return o
+    return o, lse, (q, k, v)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward kernel with
+    the rows' log-sum-exp (on the CPU the plain versions of both), the
+    backward kernel (on the CPU ``flash_attention_bwd_plain``).  Saves
+    q, k, v, o and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            o = flash_attention_plain(q, k, v, causal)
+            lse = flash_attention_lse_plain(q, k, v, causal)
+        else:
+            o, lse, (q, k, v) = _launch(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from .flash_attention_bwd import flash_attention_bwd
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """``flash_attention_plain``'s function; on a CUDA device, one
+    launch of the hand-written kernel (counted on
+    ``flash_attention.launches``).  When an input requires a gradient,
+    through ``FlashAttention``, on the CPU too.  The output has ``q``'s
+    layout, so a [b, h, s, d] view of a [b, s, h, d] tensor comes back as
+    one."""
+    _check(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    return _launch(q, k, v, causal, with_lse=False)[0]
 
 
 flash_attention.launches = 0

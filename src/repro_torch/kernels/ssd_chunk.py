@@ -3,7 +3,10 @@
 The CUDA kernel (``csrc/ssd_chunk.cu``) replaces the reference's Pallas
 kernel ``_ssd_chunk_kernel``.  ``ssd_chunk`` launches it for tensors on
 a CUDA device and takes the plain version, ``ssd_chunk_plain``, only for
-tensors on the CPU.  Both compute the decay the way the kernel does, as
+tensors on the CPU.  The kernel has no backward yet: on a CUDA device a
+call whose inputs require a gradient (grad mode on) raises, where its
+output would otherwise carry no gradient at all; on the CPU the plain
+version is differentiable.  Both compute the decay the way the kernel does, as
 a difference of cumulative sums.
 """
 from __future__ import annotations
@@ -76,6 +79,11 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return ssd_chunk_plain(x, a, b, c)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
+        raise build.KernelError(
+            "ssd_chunk: the kernel has no backward yet; an input requires "
+            "a gradient, and its output would carry none (on the CPU the "
+            "plain version is differentiable)")
     B, nc, l, H, P = x.shape
     N = b.shape[-1]
     if l > MAX_CHUNK:

@@ -1,0 +1,71 @@
+"""Training launcher (the reference's ``launch/train.py``).
+
+    python -m repro_torch.launch.train --arch olmo-1b --smoke --steps 20
+    python -m repro_torch.launch.train --arch olmo-1b --smoke --steps 4 --device cpu
+    python -m repro_torch.launch.train --arch olmo-1b --layers 2 --steps 6
+
+``--smoke`` uses the reduced same-family config; without it the full
+published config, which ``--layers`` may cut in depth (its widths kept).
+Checkpoints go to ``--ckpt-dir`` (a run resumes from the newest one
+there) or, without it, to a fresh temporary directory, whose name the
+launcher prints.  Runs on the CUDA device unless ``--device`` names
+another.  ``--dp`` and
+``--tp`` other than 1 raise: the port has no sharding yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional, Sequence
+
+import repro_torch.configs as C
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=C.ARCH_IDS, required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep this many layers of the config (depth cut)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", type=str, default=None,
+                    help="checkpoint directory, resumed from if it holds "
+                         "one (default: a fresh temporary directory)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--accum", type=int, default=1,
+                    help="gradient-accumulation microbatches")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device)")
+    args = ap.parse_args(argv)
+    if args.dp != 1 or args.tp != 1:
+        raise NotImplementedError(
+            f"--dp {args.dp} --tp {args.tp}: the port trains on one device; "
+            f"data and tensor parallelism wait for its sharding layer")
+
+    cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    tcfg = TrainerConfig(total_steps=args.steps,
+                         checkpoint_every=args.ckpt_every,
+                         log_every=args.log_every,
+                         global_batch=args.batch, seq_len=args.seq,
+                         accum_steps=args.accum,
+                         **({} if args.ckpt_dir is None else
+                            {"checkpoint_dir": args.ckpt_dir}))
+    print(f"checkpoints in {tcfg.checkpoint_dir}")
+    trainer = Trainer(cfg, tcfg, device=args.device)
+    state = trainer.run_with_recovery()
+    print(f"finished at step {state.step}")
+    for rec in trainer.metrics_log[-5:]:
+        print(rec)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

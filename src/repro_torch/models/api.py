@@ -1,7 +1,7 @@
 """Family-dispatching model API (the reference's ``models/api.py``).
 
     init(cfg, gen, device)                      -> params (an nn.Module)
-    loss_fn(cfg, params, batch)                 -> scalar loss (forward only)
+    loss_fn(cfg, params, batch)                 -> scalar loss
     init_cache(cfg, batch, max_len, dtype, device) -> decode cache
     serve_step(cfg, params, cache, token, pos)  -> (logits, cache)
 
@@ -11,7 +11,11 @@ Batch layout per family:
     encdec:               + frames  [b, enc_frames, d_model] bf16
 
 The moe and hybrid forwards return ``(logits, aux)``; ``loss_fn`` adds
-the router's auxiliary loss.
+the router's auxiliary loss.  ``loss_fn`` is differentiable: under
+autograd the dense, vlm, MoE and encoder-decoder families run the
+``flash_attention`` backward kernel on the card, and every family its
+plain versions on the CPU; the ssm and hybrid families take gradients
+on the CPU only until ``ssd_chunk`` has a backward kernel.
 """
 from __future__ import annotations
 

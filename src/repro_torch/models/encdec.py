@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder backbone  [arXiv:2212.04356]: the PyTorch
-port of the reference's ``models/encdec.py``, forward only.
+port of the reference's ``models/encdec.py``.
 
 The conv audio frontend is a stub, as in the reference: the encoder
 consumes precomputed frame embeddings ([b, enc_frames, d_model]).  The
@@ -94,10 +94,14 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     x = frames
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
-    for p in params["enc"]:
+
+    def blk_fwd(p, x):
         x = x + L.attention(cfg, p["attn"], L.norm(cfg, p["ln1"], x), pos,
                             causal=False)
-        x = x + L.ffn(cfg, p["ffn"], L.norm(cfg, p["ln2"], x))
+        return x + L.ffn(cfg, p["ffn"], L.norm(cfg, p["ln2"], x))
+    bf = L.remat(cfg, blk_fwd)
+    for p in params["enc"]:
+        x = bf(p, x)
     return L.norm(cfg, params["ln_enc"], x)
 
 
@@ -133,15 +137,17 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     x = L.embed(cfg, params["embed"], tokens)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    df = L.remat(cfg, lambda blk, h: dec_block_fwd(cfg, blk, h, pos,
+                                                   enc_out))
     for blk in params["dec"]:
-        x = dec_block_fwd(cfg, blk, x, pos, enc_out)
+        x = df(blk, x)
     x = L.norm(cfg, params["ln_f"], x)
     return L.lm_head(cfg, params["embed"], x)
 
 
 def loss_fn(cfg: ModelConfig, params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Forward only: the port has no backward yet (ROADMAP.md)."""
+    """Token-mean cross entropy of the decoder's logits."""
     logits = forward(cfg, params, batch["tokens"], batch["frames"])
     return L.softmax_xent(logits, batch["labels"])
 

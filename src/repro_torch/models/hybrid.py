@@ -1,5 +1,5 @@
 """Jamba-style hybrid Mamba+attention+MoE model  [arXiv:2403.19887]: the
-PyTorch port of the reference's ``models/hybrid.py``, forward only.
+PyTorch port of the reference's ``models/hybrid.py``.
 
 The layer stack is organized into *superblocks* of ``cfg.hybrid_block``
 layers (Jamba: 8).  Within a superblock, position ``hybrid_attn_idx``
@@ -123,8 +123,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    sf = L.remat(cfg, lambda sb, h: superblock_fwd(cfg, sb, h, pos))
     for sb in params["blocks"]:
-        x, aux = superblock_fwd(cfg, sb, x, pos)
+        x, aux = sf(sb, x)
         aux_total = aux_total + aux
     x = L.norm(cfg, params["ln_f"], x)
     return L.lm_head(cfg, params["embed"], x), aux_total
@@ -132,7 +133,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor
 
 def loss_fn(cfg: ModelConfig, params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Forward only: the port has no backward yet (ROADMAP.md)."""
+    """Cross entropy plus, with MoE layers, the router's auxiliary
+    loss.  On the card its gradient waits for an ``ssd_chunk`` backward:
+    ``ssd_chunk`` raises under autograd there."""
     logits, aux = forward(cfg, params, batch["tokens"])
     loss = L.softmax_xent(logits, batch["labels"])
     if cfg.moe is not None:

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -37,8 +38,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Params(nn.Module):
     """An ``nn.Module`` whose parameters and submodules read by name,
-    ``p["w_in"]``, like the reference's parameter dictionaries.  The
-    port runs inference only, so parameters take no gradient."""
+    ``p["w_in"]``, like the reference's parameter dictionaries.
+    Parameters are created frozen, so the inference paths build no
+    autograd graph; a train step (``launch/steps.make_train_step``)
+    makes them trainable with ``requires_grad_()``."""
 
     def add(self, name: str, value: torch.Tensor) -> None:
         self.register_parameter(name, nn.Parameter(value,
@@ -49,6 +52,32 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def remat(cfg: ModelConfig, fn):
+    """``fn`` as a family's forward runs one block: under autograd with
+    ``cfg.remat`` (grad mode on, and the block's input or one of its
+    parameters requiring a gradient), through ``torch.utils.checkpoint`` (non-reentrant),
+    which keeps only the block's inputs and recomputes the rest in the
+    backward, as the reference wraps its blocks in ``jax.checkpoint``;
+    otherwise as it is."""
+    def run(*args):
+        if cfg.remat and torch.is_grad_enabled() and _trains(args):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+    return run
+
+
+def _trains(args) -> bool:
+    """Whether a block's arguments take part in a gradient: a tensor that
+    requires one, or a module with a trainable parameter."""
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.requires_grad:
+            return True
+        if isinstance(a, nn.Module) and any(p.requires_grad
+                                            for p in a.parameters()):
+            return True
+    return False
 
 
 def _normal(shape, gen: Optional[torch.Generator], device, scale: float,

@@ -1,5 +1,5 @@
 """Mixture-of-Experts transformer (grok-1, qwen2-moe): the PyTorch port of
-the reference's ``models/moe.py``, forward only.
+the reference's ``models/moe.py``.
 
 MoE dispatch is the framework's instantiation of TeAAL's
 *uniform-occupancy leader-follower partitioning* (DESIGN.md): the
@@ -245,8 +245,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    bf = L.remat(cfg, lambda blk, h: block_fwd(cfg, blk, h, pos))
     for blk in params["blocks"]:
-        x, aux = block_fwd(cfg, blk, x, pos)
+        x, aux = bf(blk, x)
         aux_total = aux_total + aux
     x = L.norm(cfg, params["ln_f"], x)
     return L.lm_head(cfg, params["embed"], x), aux_total
@@ -254,7 +255,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor
 
 def loss_fn(cfg: ModelConfig, params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Forward only: the port has no backward yet (ROADMAP.md)."""
+    """Cross entropy plus the router's auxiliary loss (weighted, a
+    layer's mean)."""
     logits, aux = forward(cfg, params, batch["tokens"])
     return (L.softmax_xent(logits, batch["labels"])
             + cfg.moe.router_aux_weight * aux / cfg.n_layers)

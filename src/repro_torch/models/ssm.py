@@ -263,15 +263,17 @@ def block_fwd(cfg: ModelConfig, pr, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     x = L.embed(cfg, params["embed"], tokens)
+    bf = L.remat(cfg, lambda blk, h: block_fwd(cfg, blk, h))
     for blk in params["blocks"]:
-        x = block_fwd(cfg, blk, x)
+        x = bf(blk, x)
     x = L.norm(cfg, params["ln_f"], x)
     return L.lm_head(cfg, params["embed"], x)
 
 
 def loss_fn(cfg: ModelConfig, params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Forward only: the port has no backward yet (ROADMAP.md)."""
+    """Token-mean cross entropy.  On the card its gradient waits for an
+    ``ssd_chunk`` backward: ``ssd_chunk`` raises under autograd there."""
     logits = forward(cfg, params, batch["tokens"])
     return L.softmax_xent(logits, batch["labels"])
 

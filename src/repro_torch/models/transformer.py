@@ -1,9 +1,10 @@
 """Decoder-only GQA transformer (granite, qwen3, qwen2, olmo, llava): the
-PyTorch port of the reference's ``models/transformer.py``, forward only.
+PyTorch port of the reference's ``models/transformer.py``.
 
 Parameters sit in ``Params`` modules (``TransformerBlock``,
 ``TransformerLM``) under the reference's names; the reference's scanned
-layer stack is a list here, run by a Python loop.  Attention runs on the
+layer stack is a list here, run by a Python loop, each block under
+``L.remat`` (rematerialised in the backward when ``cfg.remat``).  Attention runs on the
 ``flash_attention`` kernel in prefill (``layers.mha``) and in plain torch
 in decode (``layers.attention_decode``), as in the reference.
 """
@@ -76,15 +77,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    bf = L.remat(cfg, lambda blk, h: block_fwd(cfg, blk, h, pos))
     for blk in params["blocks"]:
-        x = block_fwd(cfg, blk, x, pos)
+        x = bf(blk, x)
     x = L.norm(cfg, params["ln_f"], x)
     return L.lm_head(cfg, params["embed"], x)
 
 
 def loss_fn(cfg: ModelConfig, params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Forward only: the port has no backward yet (ROADMAP.md)."""
+    """Token-mean cross entropy of the next-token logits; under
+    autograd its gradient runs the ``flash_attention`` backward kernel
+    on the card."""
     logits = forward(cfg, params, batch["tokens"],
                      extra_embeds=batch.get("patches"))
     labels = batch["labels"]

@@ -124,6 +124,50 @@ def test_simulation_runs_where_jax_and_reference_cannot_import():
     assert out.stdout.strip() == "ok"
 
 
+_BLOCKED_MAIN = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+target, sys.argv = sys.argv[1], sys.argv[1:]
+if target.endswith(".py"):
+    runpy.run_path(target, run_name="__main__")
+else:
+    runpy.run_module(target, run_name="__main__", alter_sys=True)
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    ["repro_torch.launch.train", "--smoke", "--arch", "olmo-1b", "--steps",
+     "4", "--device", "cpu", "--ckpt-every", "2", "--log-every", "1",
+     "--seq", "32", "--batch", "4"],
+    ["examples/torch/train_lm.py", "--device", "cpu", "--steps", "9"],
+    ["examples/torch/quickstart.py", "--device", "cpu"],
+    ["examples/torch/design_space_study.py", "--device", "cpu"],
+    ["examples/torch/serve_batched.py", "--device", "cpu", "--clients", "4",
+     "--queries", "6"],
+], ids=lambda a: Path(a[0]).stem.split(".")[-1])
+def test_entry_points_run_where_jax_and_reference_cannot_import(argv,
+                                                                tmp_path):
+    """The training launcher and the port's four examples, each with
+    ``--device cpu``, in a process where importing JAX or the reference
+    fails."""
+    if argv[0] == "repro_torch.launch.train":
+        argv = argv + ["--ckpt-dir", str(tmp_path / "ckpt")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_MAIN, *argv],
+                         env=env, capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    if argv[0] == "repro_torch.launch.train":
+        assert "finished at step 4" in out.stdout
+    if "train_lm" in argv[0]:
+        assert "phase 2 resumed and finished at step 9" in out.stdout
+    if "quickstart" in argv[0]:
+        assert "matches dense einsum oracle: True" in out.stdout
+
+
 def test_simulate_without_a_device_raises(monkeypatch):
     from repro_torch.accelerators import simulate
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -844,3 +888,51 @@ def test_family_configs_at_their_card_sizes(chip_smoke):
         (full.moe.n_experts, full.moe.top_k, full.ssm, full.hdim)
     assert S.dims(hyb)[1:4] == (128, 64, 128)       # heads, P, N
     assert chip_smoke.ssd_shape(hyb, 4, 2048) == (4, 8, 256, 128, 64, 128)
+
+
+def test_chip_smoke_training_phases_rehearse_on_cpu(chip_smoke):
+    """Phases 30-33 at a tiny size on the CPU (the plain versions, no
+    launches): the backward held to its plain version and both planted
+    faults (the last key tile, the last 8 keys) caught; the smoke OLMo's
+    train step, its fp32 consistency step and the trainer's resume to
+    the uninterrupted loss."""
+    import repro_torch.configs as C
+    rec = chip_smoke.phase_flash_grad(
+        "cpu", cases=(((1, 4, 2, 80, 80, 32), True),
+                      ((1, 2, 2, 40, 100, 64), False)), reps=1)
+    assert rec["name"] == "flash_attention_bwd" and rec["route"] == "cuda"
+    assert (ROOT / rec["source"]).exists()
+    assert set(rec["fp32"]) == set(chip_smoke.TIMED_KEYS) | {"library_ms"}
+    assert len(rec["cases"]) == 4 and rec["max_abs_err"] == 0.0
+    assert all(c["scaled_err"] == 0.0 for c in rec["cases"])
+    assert all(set(c["planted_err"]) == set(chip_smoke.BWD_FAULTS) and
+               min(c["planted_err"].values()) > 10 * chip_smoke.BWD_ATOL[
+                   getattr(torch, c["dtype"])] for c in rec["cases"])
+    cfg = C.get_smoke("olmo-1b")
+    step = chip_smoke.phase_train_step("cpu", cfg, batch=2, seq=64,
+                                       warmup=1, steps=2)
+    assert step["launches"] == {"flash_attention": 0,
+                                "flash_attention_bwd": 0}
+    assert all(np.isfinite(x) for pair in step["metrics"] for x in pair)
+    cons = chip_smoke.phase_train_consistency("cpu", cfg, shape=(2, 32))
+    # the same forward; the Function's plain backward against autograd
+    # through the plain forward: fp32 reassociation only
+    assert cons["loss_rel"] == 0.0 and cons["grad_rel"] <= 1e-5
+    assert set(cons["held"]) == {"flash_attention", "flash_attention_bwd"}
+    tr = chip_smoke.phase_trainer("cpu", smoke=True)
+    assert tr["bit_equal"] and len(tr["write_s"]) == 2
+
+
+def test_flash_bwd_bound_at_the_train_shape(chip_smoke):
+    """Five products of 2 sq sk d a head over the causal half: 3.44e11
+    operations at OLMo-1B's train shape, 0.348 ms at the bf16 peak,
+    2.5x the forward's bound; the bytes (0.25 ms) under it."""
+    shape = (8, 16, 16, 2048, 2048, 128)
+    flops = chip_smoke.flash_bwd_flops(shape)
+    assert flops == chip_smoke.flash_flops(shape) * 5 // 2
+    assert abs(flops - 3.44e11) < 0.01e11
+    ms, by, route = chip_smoke.flash_bwd_bound(shape, torch.bfloat16)
+    assert by == "operations" and route == "bf16 tensor cores"
+    assert abs(ms - 0.348) < 0.001
+    fwd, _, _ = chip_smoke.flash_bound(shape, torch.bfloat16)
+    assert ms == pytest.approx(2.5 * fwd, rel=1e-6)

@@ -920,3 +920,143 @@ def test_family_smoke_prefill_on_card_launches_kernels(cuda_device, arch):
     assert (flash_attention.launches, ssd_chunk.launches) == want
     assert logits.shape == (2, 64, 512)
     assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+
+
+# ---------------------------------------------------------------------- #
+# the training path: the flash backward kernel, lse, ssd_chunk under grad
+# ---------------------------------------------------------------------- #
+#: (b, h, hkv, sq, sk, d): GQA, sq != sk with ragged tails, each d
+BWD_CASES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 100, 150, 64),
+             (1, 2, 1, 130, 70, 128), (1, 3, 3, 77, 1500, 64),
+             (2, 4, 4, 256, 256, 128)]
+
+
+def _bwd_inputs(shape, dtype, device, seed=0):
+    b, h, hkv, sq, sk, d = shape
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype)
+            for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                      (b, h, sq, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_bwd_matches_plain_on_card(cuda_device, shape,
+                                                   dtype, causal):
+    from repro_torch.kernels import (flash_attention_bwd,
+                                     flash_attention_bwd_plain,
+                                     flash_attention_lse_plain)
+    from repro_torch.kernels.flash_attention import _launch
+    from repro_torch.kernels.flash_attention_bwd import (
+        ATOL, bwd_err, flash_attention_bwd_scale)
+    q, k, v, do = _bwd_inputs(shape, dtype, cuda_device)
+    o, lse, _ = _launch(q, k, v, causal, with_lse=True)
+    # the forward's lse: the plain version's within fp32 rounding
+    torch.testing.assert_close(lse, flash_attention_lse_plain(q, k, v,
+                                                              causal),
+                               rtol=1e-6, atol=1e-5)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    assert all(g.dtype == dtype for g in got)
+    scale = flash_attention_bwd_scale(q, k, v, o, lse, do, causal)
+    assert bwd_err(got, want, scale) <= ATOL[dtype]
+    # two passes, no atomics: the same bits again
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_under_autograd_on_card(cuda_device):
+    """Inputs that require a gradient take ``FlashAttention``: an output
+    with a ``grad_fn``, one forward and one backward launch, gradients of
+    the strided [b, s, h, d] views the model passes equal to the plain
+    backward's."""
+    from repro_torch.kernels import (flash_attention_bwd,
+                                     flash_attention_bwd_plain,
+                                     flash_attention_lse_plain)
+    from repro_torch.kernels.flash_attention_bwd import (
+        ATOL, bwd_err, flash_attention_bwd_scale)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    base = [torch.randn(2, 96, n, 64, generator=g, device=cuda_device)
+            .to(torch.bfloat16).requires_grad_() for n in (4, 2, 2)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    o = flash_attention(q, k, v)
+    assert o.grad_fn is not None
+    do = torch.randn(o.shape, generator=g, device=cuda_device).to(o.dtype)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    with torch.no_grad():
+        lse = flash_attention_lse_plain(q, k, v)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        scale = flash_attention_bwd_scale(q, k, v, o, lse, do)
+    got = [t.grad.transpose(1, 2) for t in base]
+    assert bwd_err(got, want, scale) <= ATOL[torch.bfloat16]
+    # without autograd nothing more is written and no graph is built
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_rejects_an_unsupported_head_dim(cuda_device):
+    from repro_torch.kernels import flash_attention_bwd
+    q = torch.randn(1, 1, 8, 48, device=cuda_device)
+    lse = torch.zeros(1, 1, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_raises_under_grad_on_card(cuda_device):
+    """No backward kernel yet: an input that requires a gradient raises
+    (a ``KernelError``, which crash recovery never retries), where a
+    silent output without a ``grad_fn`` would drop the gradient."""
+    from repro_torch.kernels.build import KernelError
+    B, nc, l, H, P, N = 1, 2, 64, 2, 32, 16
+    g = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.randn(B, nc, l, H, P, generator=g, device=cuda_device)
+    a = -torch.rand(B, H, nc, l, generator=g, device=cuda_device)
+    b = torch.randn(B, nc, l, N, generator=g, device=cuda_device)
+    c = torch.randn(B, nc, l, N, generator=g, device=cuda_device)
+    with pytest.raises(KernelError, match="no backward"):
+        ssd_chunk(x.requires_grad_(), a, b, c)
+    with torch.no_grad():
+        assert ssd_chunk(x, a, b, c).shape == (B, nc, l, H, P)
+
+
+@pytest.mark.cuda
+def test_olmo_smoke_train_step_on_card(cuda_device):
+    """Two train steps of the OLMo smoke config on the card: finite loss,
+    one flash forward, one recomputed forward and one backward a layer a
+    step, and the same loss as the step on the CPU to bf16 attention
+    rounding."""
+    import repro_torch.configs as C
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import optimizers as opt
+    cfg = C.get_smoke("olmo-1b")
+    batch = api.make_batch(cfg, torch.Generator().manual_seed(1), 2, 64)
+    losses = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        params = api.init(cfg, torch.Generator().manual_seed(0)).to(dev)
+        o = opt.adamw(1e-3)
+        state = o.init(dict(params.named_parameters()))
+        step = make_train_step(cfg, o, device=dev)
+        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+        losses[dev.type] = float(m["loss"])
+        if dev.type == "cuda":
+            assert flash_attention.launches - f0 == 2 * 2 * cfg.n_layers
+            assert flash_attention_bwd.launches - b0 == 2 * cfg.n_layers
+    assert np.isfinite(losses["cuda"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2

@@ -102,10 +102,9 @@ def test_configs_match_reference(arch):
     for get in ("get", "get_smoke"):
         want = dataclasses.asdict(getattr(RC, get)(arch))
         got = dataclasses.asdict(getattr(TC, get)(arch))
-        # the reference's layer-scan, remat and kernel switches are not
-        # carried; every other field is equal
-        assert set(want) - set(got) == {"scan_layers", "remat",
-                                        "use_kernels"}
+        # the reference's layer-scan and kernel switches are not carried
+        # (remat is, with the training path); every other field is equal
+        assert set(want) - set(got) == {"scan_layers", "use_kernels"}
         assert got == {k: want[k] for k in got}
     from repro.configs.base import param_count as jcount
     from repro_torch.configs.base import param_count as tcount
