@@ -163,6 +163,8 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
+import re
 import statistics
 import shutil
 import subprocess
@@ -2707,15 +2709,16 @@ def _forward_lse(q, k, v, causal: bool):
 
 
 def _drop_last_keys(n: int) -> Callable:
-    """A fault of the backward kernel: it stops ``n`` keys early, so the
-    last ``n`` keys' rows of dk and dv come back zero and their terms are
-    missing from dq."""
+    """A fault of the backward kernel: it stops ``n`` keys early (all of
+    them where there are fewer), so the last keys' rows of dk and dv come
+    back zero and their terms are missing from dq."""
     def fault(kernel: Callable) -> Callable:
         def faulty(q, k, v, o, lse, do, causal=True):
-            sk = k.shape[2] - n
+            m = min(n, k.shape[2])
+            sk = k.shape[2] - m
             dq, dk, dv = kernel(q, k[:, :, :sk], v[:, :, :sk], o, lse, do,
                                 causal)
-            pad = (0, 0, 0, n)
+            pad = (0, 0, 0, m)
             return (dq, torch.nn.functional.pad(dk, pad),
                     torch.nn.functional.pad(dv, pad))
         return faulty
@@ -2723,10 +2726,12 @@ def _drop_last_keys(n: int) -> Callable:
 
 
 #: planted faults of ``flash_attention_bwd`` that phase flash_grad's hold
-#: must catch at every case: the last key tile, and the last 8 keys (at a
-#: causal sq = sk, keys seen by one to eight queries: the smallest
-#: gradients)
-BWD_FAULTS = {"drop_key_tile": _drop_last_keys(64),
+#: must catch at every case: the last key block of the bf16 route (128
+#: keys), the last key tile of the fp32 route's dK/dV pass (64), and the
+#: last 8 keys (at a causal sq = sk, keys seen by one to eight queries: the
+#: smallest gradients)
+BWD_FAULTS = {"drop_last_128_keys": _drop_last_keys(128),
+              "drop_key_tile": _drop_last_keys(64),
               "drop_last_8_keys": _drop_last_keys(8)}
 
 
@@ -2745,16 +2750,20 @@ def _sdpa_bwd_ms(q, k, v, do, causal: bool, device, reps: int) -> float:
 
 def bwd_registers() -> List[str]:
     """nvcc's register and spill lines of the backward's kernels, each
-    named by its entry (from this process's build)."""
+    named by its entry (from this process's build): the pass, the route
+    (bf16 wgmma in namespace ``hopper``, fp32 3xTF32 mma.sync in ``tc32``;
+    dsum by its element type) and the head dim."""
     out, entry = [], ""
     for ln in build.BUILD_LOGS.get("flash_attention_bwd", "").splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
-            for part in ("dsum_kernel", "dkdv_kernel", "dq_kernel"):
+            for part in BWD_PASSES:
                 if part in entry:
-                    kind = "bf16" if "bfloat16" in entry else "fp32"
-                    dim = entry.split("Li")[-1].split("E")[0]
-                    entry = f"{part}<{kind}, {dim}>"
+                    route = ("bf16 wgmma" if "hopper" in entry else
+                             "fp32 mma.sync" if "tc32" in entry else
+                             "bf16" if "bfloat16" in entry else "fp32")
+                    dim = re.search(r"Li(\d+)E", entry)
+                    entry = f"{part}<{route}, d {dim and dim.group(1)}>"
         elif "registers" in ln or "spill" in ln:
             out.append(f"{entry}: {ln.strip()}")
     return out
@@ -2767,10 +2776,12 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
     ``bwd_err`` (each gradient element's error over the summed magnitude
     of its terms), in bf16 and fp32, at each case; each timed beside its
     bound, the plain version's time and SDPA's backward.  At every case
-    each of ``BWD_FAULTS`` must fail that hold.  All readings are logged
-    before the rules are enforced.  Returns the bf16 record of the first
-    case (the result line's), the fp32 one under ``fp32`` and every case
-    under ``cases``."""
+    each of ``BWD_FAULTS`` must fail that hold, and a second call on the
+    same inputs must give the same bits (no atomics: the trainer's resume
+    is bit-equal).  All readings are logged before the rules are
+    enforced.  Returns the bf16 record of the first case (the result
+    line's), the fp32 one under ``fp32`` and every case under
+    ``cases``."""
     device = torch.device(device)
     recs, failed = [], []
     for i, (shape, causal) in enumerate(cases):
@@ -2784,6 +2795,8 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
             o, lse = _forward_lse(q, k, v, causal)
             args = (q, k, v, o, lse, do, causal)
             got = flash_attention_bwd(*args)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(got, flash_attention_bwd(*args)))
             want = flash_attention_bwd_plain(*args)
             scale = flash_attention_bwd_scale(*args)
             err = bwd_err(got, want, scale)
@@ -2798,6 +2811,8 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
             limit = BWD_ATOL[dtype]
             if not err <= limit:
                 failed.append(f"{shape} {dtype} causal={causal}: {err}")
+            if not same:
+                failed.append(f"{shape} {dtype}: two calls differ")
             failed += [f"{name} passed at {shape} {dtype}: {e}"
                        for name, e in planted.items() if not e > limit]
             bound, by, route = flash_bwd_bound(shape, dtype, causal)
@@ -2805,6 +2820,7 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
                  "dtype": str(dtype).replace("torch.", ""),
                  "max_abs_err": max(errs), "scaled_err": err,
                  "max_abs_err_dq_dk_dv": errs, "planted_err": planted,
+                 "bit_equal": same,
                  "ms": _time_ms(lambda: flash_attention_bwd(*args), device,
                                 reps),
                  "plain_ms": _time_ms(lambda: flash_attention_bwd_plain(
@@ -2812,16 +2828,26 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
                  "bound_ms": bound, "bound_by": by, "bound_route": route,
                  "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, device,
                                             reps)}
+            # device ms of each pass in one profiled call (none on the CPU)
+            by_name = profile_step(lambda: flash_attention_bwd(*args),
+                                   device)["by_name"] \
+                if device.type == "cuda" else {}
+            r["pass_ms"] = {n: sum(us for k, us in by_name.items()
+                                   if re.search(rf"\b{n}\b", k)) / 1e3
+                            for n in BWD_PASSES if by_name}
             tflops = flash_bwd_flops(shape, causal) / r["ms"] * 1e-9
             log(f"flash_grad {shape} {dtype} causal={causal} on "
                 f"{card or device}: max abs err dq / dk / dv "
                 f"{errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g}; bwd_err "
                 f"{err:.4g} (limit {limit}); planted faults: "
                 + ", ".join(f"{n} {e:.4g}" for n, e in planted.items())
+                + f"; two calls bit-equal: {same}"
                 + f"; {r['ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
                 f"{bound / r['ms']:.1%} of the bound {bound:.4f} ms by {by} "
                 f"on {route} (plain {r['plain_ms']:.4f}, SDPA backward "
-                f"{r['library_ms']:.4f})")
+                f"{r['library_ms']:.4f}); device ms by pass "
+                + (", ".join(f"{n} {v:.4f}" for n, v in r["pass_ms"].items())
+                   or "not measured"))
             recs.append(r)
             del q, k, v, do, o, lse, args
             if device.type == "cuda":
@@ -2887,6 +2913,8 @@ def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
                 if k.__name__ != "ssd_chunk"}
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
         else None
+    profile = profile_step(lambda: step(params, state, data.global_batch_at(
+        warmup + steps)), device) if device.type == "cuda" else None
     del params, state
     per_step = {n: c / steps for n, c in launches.items()}
     want = {"flash_attention": 2 * cfg.n_layers,
@@ -2907,9 +2935,76 @@ def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
         f"model FLOP share {mfu:.2%} of 989 TFLOP/s ({flops:.4g} a step); "
         f"peak memory {peak if peak is None else f'{peak / 2**30:.2f} GiB'}"
         f"; loss / grad norm by step {metrics}; launches a step {per_step}")
+    if profile is not None:
+        log_profile(profile, dt, cfg.name, card or str(device))
     return {"launches": launches, "s_per_step": dt, "tokens_per_s":
             tokens / dt, "mfu": mfu, "peak_bytes": peak,
             "n_params": n_params, "metrics": metrics}
+
+
+#: the backward kernel's passes, as the profiler names them
+BWD_PASSES = ("dsum_kernel", "dkdv_kernel", "dq_kernel")
+
+
+def profile_step(run: Callable[[], object], device) -> Dict:
+    """One call of ``run`` (a train step, a backward call) under
+    ``torch.profiler`` (CPU and CUDA activity), synced: the host seconds of the window, each
+    device kernel's time summed by name, and the device's busy time (the
+    union of the kernels' intervals; the profiler's own cost inflates the
+    host seconds, not the kernels')."""
+    _sync(device)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        run()
+        _sync(device)
+    wall = time.perf_counter() - t0
+    by_name: Dict[str, float] = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+        spans.append((ev.time_range.start, ev.time_range.end))
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"wall_s": wall, "busy_s": busy * 1e-6, "by_name": by_name,
+            "first_last_s": (end - spans[0][0]) * 1e-6 if spans else 0.0}
+
+
+def log_profile(prof: Dict, step_s: float, name: str, card: str,
+                top: int = 15) -> None:
+    """The step's profile: device time summed by kernel name (the largest
+    ``top``), the attention backward's share of the step, and the
+    device's idle share: of the untraced step (``step_s``, the timed
+    steps' mean), of the traced window, and between the traced step's
+    first and last kernel."""
+    by_name = prof["by_name"]
+    total = sum(by_name.values())
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"train_step profile {name} on {card}: {us / 1e3:.4f} ms "
+            f"({us / total:.2%} of device time) {kname[:110]}")
+    bwd = sum(us for k, us in by_name.items()
+              if any(p in k for p in BWD_PASSES))
+    fwd = sum(us for k, us in by_name.items() if "attn_kernel" in k)
+    wall, busy = prof["wall_s"], prof["busy_s"]
+    span = prof["first_last_s"]
+    log(f"train_step profile {name} on {card}: one step traced, device "
+        f"busy {busy:.4f} s; idle share {1 - busy / step_s:.2%} of the "
+        f"untraced step ({step_s:.4f} s), {1 - busy / wall:.2%} of the "
+        f"traced window ({wall:.4f} s on the host), "
+        f"{1 - busy / span:.2%} between its first and last kernel "
+        f"({span:.4f} s); {len(by_name)} kernel names; flash backward "
+        f"{bwd / 1e3:.4f} ms ({bwd * 1e-6 / step_s:.2%} of the step, "
+        f"{bwd / total:.2%} of device time), flash forward "
+        f"{fwd / 1e3:.4f} ms ({fwd / total:.2%} of device time)")
 
 
 def _loss_and_grads(cfg, params, batch):

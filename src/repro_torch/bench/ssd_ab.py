@@ -5,8 +5,8 @@
 ``DIR`` is another checkout of this repository (the parent commit, for
 example, unpacked with ``git archive`` under the ignored ``build/``).
 ``NAME`` is ``ssd_chunk`` (the default), ``flash_attention``,
-``block_sparse_matmul``, ``search``, ``merge_path`` or
-``multi_merge_ranks``.  The kernel's source
+``block_sparse_matmul``, ``search``, ``merge_path``,
+``multi_merge_ranks`` or ``flash_attention_bwd``.  The kernel's source
 under ``src/repro_torch/kernels/csrc/`` in ``DIR`` and in this tree are
 compiled with the flags of ``kernels/build.py`` and launched through the
 same C interface, each build in a process of its own that imports the
@@ -31,7 +31,12 @@ both come from one card.  The cases:
     (100,000 + 125,000 keys) and one launch of the simulator's main path
     (6,250 + 6,250), equal to ``merge_path_plain``;
   * ``multi_merge_ranks``: the table case (3 rows, 345,000 keys) and one
-    main-path launch (3 x 6,250), equal to ``multi_merge_ranks_plain``.
+    main-path launch (3 x 6,250), equal to ``multi_merge_ranks_plain``;
+  * ``flash_attention_bwd``: ``chip_smoke.FLASH_GRAD_CASES`` (OLMo-1B's
+    train shape, Qwen2-7B's GQA shape, Whisper's cross-attention) in bf16
+    and fp32, o and lse from the plain forward, each build called through
+    its own checkout's wrapper (which allocates that build's scratch) and
+    held to ``flash_attention_bwd_plain`` by ``bwd_err`` within ``ATOL``.
 
 Each process holds its build to the plain version first, then times it
 with CUDA events (mean of ``--reps`` launches after one warm-up).  The
@@ -68,6 +73,10 @@ from repro_torch.kernels.block_sparse_matmul import _DTYPES as BSMM_DTYPES
 from repro_torch.kernels.flash_attention import _ARGTYPES as FLASH_ARGS
 from repro_torch.kernels.flash_attention import _DTYPES as FLASH_DTYPES
 from repro_torch.kernels.flash_attention import ATOL as FLASH_ATOL
+from repro_torch.kernels import flash_attention_bwd
+from repro_torch.kernels.flash_attention_bwd import ATOL as BWD_ATOL
+from repro_torch.kernels.flash_attention_bwd import (
+    bwd_err, flash_attention_bwd_plain, flash_attention_bwd_scale)
 from repro_torch.kernels.merge import _ARGTYPES as MERGE_ARGS
 from repro_torch.kernels.multi_merge import _ARGTYPES as MULTI_ARGS
 from repro_torch.kernels.search import _ARGTYPES as SEARCH_ARGS
@@ -91,6 +100,10 @@ FLASH_CASES = {
                               torch.float32),
     "whisper_encoder bf16": ((4, 12, 12, 1500, 1500, 64), False,
                              torch.bfloat16)}
+#: ((b, h, hkv, sq, sk, d), causal): chip_smoke.FLASH_GRAD_CASES
+BWD_CASES = (((8, 16, 16, 2048, 2048, 128), True),
+             ((4, 28, 4, 2048, 2048, 128), True),
+             ((4, 12, 12, 448, 1500, 64), False))
 #: (M, K, N, bm, bk, tile density): chip_smoke.BSMM_CARD
 BSMM_CASE = (8192, 8192, 1024, 128, 128, 0.3)
 BSMM_RTOL = 1e-4
@@ -184,7 +197,8 @@ def flash_cases(lib, gen):
                 causal=causal):
             b, h, hkv, sq, sk, d = shape
             _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      b, h, hkv, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
+                      None, b, h, hkv, sq, sk, d, int(causal),
+                      1.0 / math.sqrt(d),
                       FLASH_DTYPES[q.dtype], ctypes.addressof(strides),
                       _stream()), "flash_attention")
             return o
@@ -194,6 +208,37 @@ def flash_cases(lib, gen):
             return err, err <= atol
 
         yield label, run, ok
+
+
+def bwd_cases(lib, gen):
+    """q, k, v, do at each of BWD_CASES in bf16 and fp32, standard normal,
+    with o and lse from the plain forward; the build in ``lib`` is called
+    through this checkout's ``flash_attention_bwd`` wrapper."""
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    build._LIBS["flash_attention_bwd"] = lib
+    from repro_torch.kernels import flash_attention_lse_plain
+    for shape, causal in BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            b, h, hkv, sq, sk, d = shape
+            q, k, v, do = (torch.randn(s, generator=gen, device="cuda")
+                           .to(dtype) for s in
+                           ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                            (b, h, sq, d)))
+            o = flash_attention_plain(q, k, v, causal)
+            lse = flash_attention_lse_plain(q, k, v, causal)
+            args = (q, k, v, o, lse, do, causal)
+            want = flash_attention_bwd_plain(*args)
+            scale = flash_attention_bwd_scale(*args)
+
+            def run(args=args):
+                return flash_attention_bwd(*args)
+
+            def ok(got, want=want, scale=scale, atol=BWD_ATOL[dtype]):
+                err = bwd_err(got, want, scale)
+                return err, err <= atol
+
+            yield f"{shape} causal={causal} {dtype}", run, ok
 
 
 def bsmm_cases(lib, gen):
@@ -314,7 +359,8 @@ def multi_cases(lib, gen):
 KERNELS = {"ssd_chunk": ssd_cases, "flash_attention": flash_cases,
            "block_sparse_matmul": bsmm_cases,
            "search": search_cases, "merge_path": merge_cases,
-           "multi_merge_ranks": multi_cases}
+           "multi_merge_ranks": multi_cases,
+           "flash_attention_bwd": bwd_cases}
 
 
 def time_ms(run, reps: int, graph: bool = False) -> float:

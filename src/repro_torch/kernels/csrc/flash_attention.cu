@@ -126,13 +126,13 @@
 //    its tiles from L2; under the causal mask the query blocks with the
 //    most tiles are numbered first (the fp32 kernel's CTAs, the bf16
 //    kernel's items).
-#include <cuda.h>            // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -473,6 +473,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // --------------------------------------------------------------------- //
 namespace hopper {
 
+using namespace sm90;
+
 constexpr int kThreads = 384;       // warpgroup 0 produces, 1 and 2 consume
 constexpr int kBq = 128;            // queries per CTA: 64 per consumer
 constexpr int kBk = 128;            // keys per tile
@@ -507,208 +509,6 @@ struct Params {
   int64_t ob, oh, os;               // output strides, elements
   float* lse;                       // [B, H, sq] or null
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 4-d tensor map at coordinates (c0, c1, c2, c3), innermost
-// first, into shared memory; completion counted on ``bar``
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout (1: 128 B, 2: 64 B)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// at most N of the committed groups still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keeps the compiler from touching wgmma's registers before it is done
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 32] += A[64 x 16] B[16 x 32]: A in registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
-}
 
 // a consumer thread's two rows (r0 and r0 + 8): where they are, their
 // carry (m in log2 units, l summed per thread) and their outputs
@@ -876,15 +676,14 @@ attn_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(k_empty + 8 * s, kConsumers);
       mbar_init(v_empty + 8 * s, kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   if (wg == 0) {
     // producer: one thread starts every load.  Waits on an empty barrier
     // take the opposite parity, so the first pass through is free.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(kProducerRegs));
+    setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
       int it = 0;                                // tiles through the ring
       for (int round = 0; item_of(round) < n_items; ++round) {
@@ -914,8 +713,7 @@ attn_kernel(const __grid_constant__ CUtensorMap tq,
     // consumers: 64 query rows per warpgroup.  While the softmax of tile
     // t runs, S of tile t and PV of tile t - 1 are already started: the
     // tensor cores work during the exponentials.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(kConsumerRegs));
+    setmaxnreg_inc<kConsumerRegs>();
     const int ct = threadIdx.x - 128 * wg;
     const int warp = ct / 32, lane = ct % 32;
     const uint32_t q_wg = q_s + 64 * (wg - 1) * T::kSwizzle;
@@ -1023,62 +821,6 @@ attn_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// launch errors above this are cuTensorMapEncodeTiled's CUresult + base
-constexpr int kEncodeErrorBase = 20000;
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled through the runtime, so the library
-// needs no -lcuda
-int encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || ptr == nullptr)
-      return (int)cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// a [batch, heads, rows, d] bf16 view (strides b, h, s in elements) as a
-// 4-d tensor map (d, rows, heads, batch) with boxes of box_cols x kBk
-int encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
-           int batch, const int64_t* st, int box_cols,
-           CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn;
-  const int err = encoder(&fn);
-  if (err != 0) return err;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2,
-                                 (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)kBk, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // zeros
-  return r == CUDA_SUCCESS ? 0 : kEncodeErrorBase + (int)r;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            float* lse, int B, int H, int Hkv, int sq, int sk, int causal,
@@ -1090,15 +832,15 @@ int launch(const void* q, const void* k, const void* v, void* o,
   // with no keys nothing loads K or V: their maps describe q instead
   const bool no_keys = sk == 0;
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, D, sq, H, B, st, T::kBoxCols, swizzle);
+  int err = encode(&tq, q, D, sq, H, B, st, T::kBoxCols, kBk, swizzle);
   if (err == 0)
     err = encode(&tk, no_keys ? q : k, D, no_keys ? sq : sk,
                  no_keys ? H : Hkv, B, no_keys ? st : st + 3, T::kBoxCols,
-                 swizzle);
+                 kBk, swizzle);
   if (err == 0)
     err = encode(&tv, no_keys ? q : v, D, no_keys ? sq : sk,
                  no_keys ? H : Hkv, B, no_keys ? st : st + 6, T::kBoxCols,
-                 swizzle);
+                 kBk, swizzle);
   if (err != 0) return err;
   cudaError_t e = cudaFuncSetAttribute(
       attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1106,11 +848,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return (int)e;
   const Params p{B, H, Hkv, sq, sk, causal, scale * 1.4426950408889634f,
                  st[9], st[10], st[11], lse};
-  int device = 0, sms = 0;
-  e = cudaGetDevice(&device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != 0) return err;
   const int64_t items = (int64_t)B * H * ((sq + kBq - 1) / kBq);
   const int blocks = (int)(items < sms ? items : sms);
   attn_kernel<D><<<blocks, kThreads, T::kSmem, stream>>>(
@@ -1161,9 +901,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 
 extern "C" const char* repro_error_string(int code) {
   static char buf[96];
-  if (code >= hopper::kEncodeErrorBase) {
+  if (code >= sm90::kEncodeErrorBase) {
     snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult "
-             "%d", code - hopper::kEncodeErrorBase);
+             "%d", code - sm90::kEncodeErrorBase);
     return buf;
   }
   return cudaGetErrorString((cudaError_t)code);

@@ -7,10 +7,11 @@ runs the forward kernel on the card, so its training path needs this
 gradient; ``flash_attention.FlashAttention`` calls it.
 
 ``flash_attention_bwd`` launches the kernel (FlashAttention-2's method:
-``D = rowsum(do o)``, then one pass parallel over key tiles for dK and
-dV, one over query tiles for dQ; no atomics, so the gradient is the same
-bits on every run) for tensors on a CUDA device, and takes the plain
-version, ``flash_attention_bwd_plain``, only for tensors on the CPU.
+``D = rowsum(do o)``, then one pass parallel over key blocks for dK and
+dV, one over query blocks for dQ; in bf16 wgmma fed by TMA, in fp32
+3xTF32 on ``mma.sync``; no atomics, so the gradient is the same bits on
+every run) for tensors on a CUDA device, and takes the plain version,
+``flash_attention_bwd_plain``, only for tensors on the CPU.
 Both recompute the softmax weights from the forward's log-sum-exp
 (``flash_attention_lse_plain``'s function).  The kernel is held to the
 plain version by ``bwd_err``: each gradient element's error over the
@@ -44,6 +45,9 @@ _ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + \
 #: of a term) and fp32 sums of up to a few thousand terms in another order
 #: than the plain version's, a few 1e-6 of the terms' magnitude.
 ATOL = {torch.float32: 5e-5, torch.bfloat16: 1.5e-2}
+#: the kernel's scratch holds pass 1's rows (lse in log2 units and D) for
+#: sq rounded up to a multiple of this (the bf16 route's query block)
+ROW_PAD = 128
 #: an element's scale is at least this share of its gradient's largest
 #: scale, so that a product that underflows in one version and not the
 #: other (a term of a few 1e-38) is no error
@@ -182,7 +186,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # pass 1's rows, padded to 128 a (b, h): lse in log2 units, then D
+    sq_pad = -(-sq // ROW_PAD) * ROW_PAD
+    dsum = torch.empty(2 * b * h * sq_pad, dtype=torch.float32,
+                       device=q.device)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
                                       for s in t.stride()[:3]))
     fn = build.function("flash_attention_bwd", "repro_flash_attention_bwd",

@@ -4,6 +4,7 @@ CPU at a tiny size."""
 import ast
 import contextlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -892,10 +893,10 @@ def test_family_configs_at_their_card_sizes(chip_smoke):
 
 def test_chip_smoke_training_phases_rehearse_on_cpu(chip_smoke):
     """Phases 30-33 at a tiny size on the CPU (the plain versions, no
-    launches): the backward held to its plain version and both planted
-    faults (the last key tile, the last 8 keys) caught; the smoke OLMo's
-    train step, its fp32 consistency step and the trainer's resume to
-    the uninterrupted loss."""
+    launches): the backward held to its plain version, every planted
+    fault (the last 128, 64 and 8 keys) caught and two calls bit-equal;
+    the smoke OLMo's train step, its fp32 consistency step and the
+    trainer's resume to the uninterrupted loss."""
     import repro_torch.configs as C
     rec = chip_smoke.phase_flash_grad(
         "cpu", cases=(((1, 4, 2, 80, 80, 32), True),
@@ -904,7 +905,8 @@ def test_chip_smoke_training_phases_rehearse_on_cpu(chip_smoke):
     assert (ROOT / rec["source"]).exists()
     assert set(rec["fp32"]) == set(chip_smoke.TIMED_KEYS) | {"library_ms"}
     assert len(rec["cases"]) == 4 and rec["max_abs_err"] == 0.0
-    assert all(c["scaled_err"] == 0.0 for c in rec["cases"])
+    assert all(c["scaled_err"] == 0.0 and c["bit_equal"]
+               for c in rec["cases"])
     assert all(set(c["planted_err"]) == set(chip_smoke.BWD_FAULTS) and
                min(c["planted_err"].values()) > 10 * chip_smoke.BWD_ATOL[
                    getattr(torch, c["dtype"])] for c in rec["cases"])
@@ -921,6 +923,27 @@ def test_chip_smoke_training_phases_rehearse_on_cpu(chip_smoke):
     assert set(cons["held"]) == {"flash_attention", "flash_attention_bwd"}
     tr = chip_smoke.phase_trainer("cpu", smoke=True)
     assert tr["bit_equal"] and len(tr["write_s"]) == 2
+
+
+def test_train_step_profile_shares(chip_smoke, capsys):
+    """``log_profile``: device time by kernel name, the flash backward's
+    share (its three passes by name) and the idle shares, from a profile
+    of known numbers; ``BWD_PASSES`` names the backward's entries in
+    its source."""
+    src = (ROOT / chip_smoke.BWD_INFO[0]).read_text()
+    assert all(re.search(rf"\b{name}\(", src)
+               for name in chip_smoke.BWD_PASSES)
+    prof = {"wall_s": 1.0, "busy_s": 0.45, "first_last_s": 0.5,
+            "by_name": {"hopper::dkdv_kernel<128>": 3000.0,
+                        "hopper::dq_kernel<128>": 2000.0,
+                        "hopper::attn_kernel<128>": 5000.0,
+                        "nvjet_gemm": 440000.0}}
+    chip_smoke.log_profile(prof, 0.5, "olmo", "card")
+    out = capsys.readouterr().out
+    assert "idle share 10.00% of the untraced step" in out
+    assert "55.00% of the traced window" in out
+    assert "flash backward 5.0000 ms (1.00% of the step" in out
+    assert "flash forward 5.0000 ms" in out
 
 
 def test_flash_bwd_bound_at_the_train_shape(chip_smoke):

@@ -971,6 +971,90 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda_device, shape,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _bwd_hold(q, k, v, do, causal):
+    """The backward kernel on the forward kernel's o and lse, held to the
+    plain backward by ``bwd_err`` within ATOL, and called twice: the
+    kernel's gradients and whether the two calls gave the same bits."""
+    from repro_torch.kernels import (flash_attention_bwd,
+                                     flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention import _launch
+    from repro_torch.kernels.flash_attention_bwd import (
+        ATOL, bwd_err, flash_attention_bwd_scale)
+    o, lse, _ = _launch(q, k, v, causal, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    scale = flash_attention_bwd_scale(q, k, v, o, lse, do, causal)
+    err = bwd_err(got, want, scale)
+    assert err <= ATOL[q.dtype], err
+    return got, all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+#: (b, h, hkv, sq, sk, d), causal: the bf16 kernel's edges -- causal with
+#: sq < sk and sq > sk (the mask top-left aligned), ragged key tails at
+#: 129, 255 and 1,500 keys (one past a 128-key block, one short of two,
+#: Whisper's frames), GQA at 7:1, each head dim
+BWD_EDGES = [((1, 2, 2, 100, 300, 64), True),
+             ((1, 2, 2, 300, 100, 128), True),
+             ((1, 2, 1, 70, 129, 128), False),
+             ((2, 2, 2, 255, 255, 64), True),
+             ((1, 2, 2, 200, 1500, 32), False),
+             ((1, 14, 2, 256, 256, 128), True),
+             ((2, 3, 3, 130, 130, 32), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", BWD_EDGES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_bwd_edges_on_card(cuda_device, shape, causal,
+                                           dtype):
+    """Held to the plain backward within ATOL, and two calls bit-equal."""
+    q, k, v, do = _bwd_inputs(shape, dtype, cuda_device, seed=5)
+    got, same = _bwd_hold(q, k, v, do, causal)
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    assert same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_bwd_strided_views_on_card(cuda_device, d, dtype):
+    """[b, s, h, d] tensors read through [b, h, s, d] views in place (the
+    model's layout); the gradients come back in that layout."""
+    g = torch.Generator(cuda_device).manual_seed(6)
+    b, s, h, hkv = 2, 190, 4, 2
+    q, do = (torch.randn(b, s, h, d, generator=g, device=cuda_device)
+             .to(dtype).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=cuda_device)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    got, same = _bwd_hold(q, k, v, do, True)
+    assert same
+    assert got[0].stride() == q.stride() and got[1].stride() == k.stride()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_bwd_empty_batch_on_card(cuda_device, dtype):
+    """A batch of 0 gives empty gradients and launches nothing that fails;
+    no queries gives zero dk and dv."""
+    from repro_torch.kernels import flash_attention_bwd
+    q, k, v, do = _bwd_inputs((0, 2, 2, 64, 64, 64), dtype, cuda_device)
+    lse = torch.zeros(0, 2, 64, device=cuda_device)
+    got = flash_attention_bwd(q, k, v, q, lse, do)
+    torch.cuda.synchronize()
+    assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+    q, k, v, do = _bwd_inputs((1, 2, 2, 0, 64, 64), dtype, cuda_device)
+    lse = torch.zeros(1, 2, 0, device=cuda_device)
+    dq, dk, dv = flash_attention_bwd(q, k, v, q, lse, do, False)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape
+    assert not bool(dk.any()) and not bool(dv.any())
+
+
 @pytest.mark.cuda
 def test_flash_attention_under_autograd_on_card(cuda_device):
     """Inputs that require a gradient take ``FlashAttention``: an output

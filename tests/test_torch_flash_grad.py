@@ -10,6 +10,8 @@ hundred terms in another order (the reference's ``attention_ref`` test
 allows 2e-6 on outputs; gradients carry two more products).
 """
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -115,30 +117,58 @@ def test_bf16_plain_backward_rounds_once():
         assert bool(((g.float() - w).abs() <= 2 ** -8 * w.abs()).all())
 
 
+SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
+    "kernels" / "csrc" / "flash_attention_bwd.cu"
+
+
+def _constant(name: str) -> int:
+    """A namespace-level ``constexpr int`` of the kernel's source."""
+    return int(re.search(rf"^constexpr int {name} = (\d+);", SRC.read_text(),
+                         re.M).group(1))
+
+
+#: the bf16 kernel's tiles, read from its source: dK and dV sum over query
+#: tiles of kBq (each head of the group in turn), dQ over key tiles of kBk
+KV_QUERY_TILE, Q_KEY_TILE = _constant("kBq"), _constant("kBk")
+
+
 def _bwd_bf16_emulated(q, k, v, o, lse, do, causal):
-    """The bf16 kernel's arithmetic on the CPU: the plain backward's
-    formulas in fp32, with P rounded to bf16 for dV = P^T dO and dS
-    (formed from the fp32 P) rounded to bf16 for dK and dQ, each
-    gradient rounded once to bf16."""
+    """The bf16 kernel's arithmetic on the CPU: P and dS in fp32 from the
+    bf16 inputs, P rounded to bf16 for dV = P^T dO and dS for dK and dQ;
+    dK and dV summed over the group's heads in order and each head's
+    query tiles of KV_QUERY_TILE in order, dQ over key tiles of
+    Q_KEY_TILE in order, each tile's product in a fresh fp32 accumulator
+    added to the running sum; each gradient rounded once to bf16."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = h // hkv
+    scale = 1.0 / math.sqrt(d)
     qf = q.reshape(b, hkv, g, sq, d).float()
     dof = do.reshape(b, hkv, g, sq, d).float()
     kf, vf = k.float(), v.float()
-    p = torch.exp(torch.einsum("bkgqd,bksd->bkgqs", qf, kf) / math.sqrt(d)
+    p = torch.exp(torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
                   - lse.reshape(b, hkv, g, sq, 1))
     if causal:
         p = torch.where(torch.arange(sq)[:, None] >= torch.arange(sk), p,
                         0.0)
     dsum = (dof * o.reshape(b, hkv, g, sq, d).float()).sum(-1, keepdim=True)
-    dv = torch.einsum("bkgqs,bkgqd->bksd", p.bfloat16().float(), dof)
     ds = (p * (torch.einsum("bkgqd,bksd->bkgqs", dof, vf) - dsum)
           ).bfloat16().float()
-    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) / math.sqrt(d)
-    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) / math.sqrt(d)
-    return tuple(t.to(torch.bfloat16) for t in (dq.reshape(b, h, sq, d), dk,
-                                                 dv))
+    p = p.bfloat16().float()
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for head in range(g):
+        for i0 in range(0, sq, KV_QUERY_TILE):
+            t = slice(i0, i0 + KV_QUERY_TILE)
+            dv += torch.einsum("bkqs,bkqd->bksd", p[:, :, head, t],
+                               dof[:, :, head, t])
+            dk += torch.einsum("bkqs,bkqd->bksd", ds[:, :, head, t],
+                               qf[:, :, head, t])
+    dq = torch.zeros_like(qf)
+    for j0 in range(0, sk, Q_KEY_TILE):
+        t = slice(j0, j0 + Q_KEY_TILE)
+        dq += torch.einsum("bkgqs,bksd->bkgqd", ds[..., t], kf[:, :, t])
+    return tuple(t.to(torch.bfloat16) for t in (
+        dq.reshape(b, h, sq, d) * scale, dk * scale, dv))
 
 
 def _bf16_case(shape, causal, seed):
@@ -152,9 +182,12 @@ def _bf16_case(shape, causal, seed):
 
 
 #: bf16 hold cases: causal with sq = sk (the last keys have one to a few
-#: terms each) and sq < sk non-causal with a ragged key tail
+#: terms each), sq < sk non-causal with a ragged key tail, and GQA at 7:1
+#: over several query tiles of each head and key tiles of 128 (sq > sk,
+#: both ragged)
 HOLD_CASES = [((2, 4, 2, 128, 128, 64), True),
-              ((1, 4, 4, 40, 150, 32), False)]
+              ((1, 4, 4, 40, 150, 32), False),
+              ((1, 7, 1, 290, 200, 128), True)]
 
 
 @pytest.mark.parametrize("shape,causal", HOLD_CASES, ids=str)
@@ -167,12 +200,14 @@ def test_bf16_kernel_rounding_within_atol(shape, causal):
         assert 0.0 < err <= ATOL[torch.bfloat16], (seed, err)
 
 
-@pytest.mark.parametrize("dropped", [8, 64])
+@pytest.mark.parametrize("dropped", [8, 64, 128])
 @pytest.mark.parametrize("shape,causal", HOLD_CASES, ids=str)
 def test_dropped_keys_fail_the_bf16_hold(shape, causal, dropped):
     """A backward that stops ``dropped`` keys early (the last keys' dK and
     dV zero, their terms missing from dQ) fails the hold by far, also
-    where those keys carry the smallest gradients (causal, sq = sk)."""
+    where those keys carry the smallest gradients (causal, sq = sk): the
+    last 8 keys, the fp32 route's 64-key tile and the bf16 route's
+    128-key block."""
     args, want, scale = _bf16_case(shape, causal, seed=0)
     q, k, v, o, lse, do, _ = args
     sk = k.shape[2] - dropped
