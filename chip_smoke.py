@@ -149,7 +149,23 @@ test can rehearse them at a tiny size with the kernels' plain versions:
 33. trainer      -- ``launch/train.py`` at full width and 2 layers, 6
                     steps with a checkpoint every 3, then a fresh
                     ``Trainer`` resumed from step 3 to the same step-6
-                    loss.
+                    loss;
+34. ssd_grad     -- the ``ssd_chunk`` backward kernel against its plain
+                    version at Mamba2-1.3B's train shape, the reduced
+                    Jamba's, two of the reference's test shapes (one
+                    under strong decay) and a ragged one, bf16 and fp32,
+                    timed beside its bound and the plain version; each
+                    gradient element's error (less one bf16 rounding of a
+                    bf16 gradient) over the summed magnitude of its terms;
+                    three planted faults (a head left out of dB and dC,
+                    the last row tile out of da's column sums, the last
+                    row tile out of dx) must fail the hold, and two calls
+                    must give the same bits;
+35. mamba2_train_step -- phase 31 for Mamba2-1.3B at full width, all 48
+                    layers: 96 ``ssd_chunk`` and 48 ``ssd_chunk_bwd``
+                    launches a step, one step profiled;
+36. mamba2_train_consistency -- phase 32 for Mamba2-1.3B at 2 layers,
+                    against autograd through ``ssd_chunk_plain``.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -207,6 +223,11 @@ from repro_torch.kernels import (flash_attention_bwd,  # noqa: E402
 # kernel vs plain backward, by dtype (the reasons are the constant's)
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
     ATOL as BWD_ATOL, bwd_err, flash_attention_bwd_scale)
+from repro_torch.kernels import (ssd_chunk_bwd,  # noqa: E402
+                                 ssd_chunk_bwd_plain)
+# kernel vs plain ssd_chunk backward (the reasons are the constant's)
+from repro_torch.kernels.ssd_chunk_bwd import (  # noqa: E402
+    ATOL as SSD_BWD_ATOL, bwd_err as ssd_bwd_err, ssd_chunk_bwd_scale)
 from repro_torch.kernels.backends import (CudaKernels,  # noqa: E402
                                           TorchKernels)
 # kernel vs plain flash attention, by dtype (the reasons are the constant's)
@@ -235,6 +256,8 @@ FA_MODULE = sys.modules["repro_torch.kernels.flash_attention"]
 #: the module whose ``flash_attention_bwd`` ``FlashAttention.backward``
 #: calls (the package attribute of that name is the function)
 BWD_MODULE = sys.modules["repro_torch.kernels.flash_attention_bwd"]
+#: the module whose ``ssd_chunk_bwd`` ``SsdChunk.backward`` calls
+SSD_BWD_MODULE = sys.modules["repro_torch.kernels.ssd_chunk_bwd"]
 
 #: H100 SXM device-memory rate and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -305,6 +328,13 @@ KERNEL_INFO = {
     "block_sparse_matmul": (
         "src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
         "src/repro/kernels/block_sparse_matmul.py:44"),
+    # the backwards replace no TPU kernel (the Pallas kernels have no VJP):
+    # the field names the kernel whose gradient each is
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:113"),
+    "ssd_chunk_bwd": ("src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+                      "src/repro/kernels/ssd_chunk.py:62"),
 }
 
 #: the model path: Mamba2-1.3B at its published widths
@@ -1602,14 +1632,75 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-#: the model kernels a prefill launches: the module that calls each, and
-#: its plain version
-PREFILL_KERNELS = {"ssd_chunk": (ssm_mod, ssd_chunk_plain),
-                   "flash_attention": (layers_mod, flash_attention_plain)}
-#: the kernels whose calls ``record_calls`` can keep: the prefill's and
-#: the backward that ``FlashAttention`` calls
-HELD_KERNELS = {**PREFILL_KERNELS, "flash_attention_bwd": (
-    BWD_MODULE, flash_attention_bwd_plain)}
+def _fwd_hold(args, got, want, err: float, limit, held: bool
+              ) -> Tuple[float, str, bool]:
+    ok = got.shape == want.shape and got.dtype == want.dtype and \
+        bool(torch.isfinite(got).all())
+    return err, f"limit {limit}", held and ok
+
+
+def _flash_hold(args, kw, got, want) -> Tuple[float, str, bool]:
+    """``flash_attention``: max abs error within FLASH_ATOL of its dtype."""
+    err = float((got.float() - want.float()).abs().max())
+    limit = FLASH_ATOL[args[0].dtype]
+    return _fwd_hold(args, got, want, err, limit, err <= limit)
+
+
+def _ssd_hold(args, kw, got, want) -> Tuple[float, str, bool]:
+    """``ssd_chunk``: each element within SSD_TOL (1 + |want|)."""
+    diff = (got.float() - want.float()).abs()
+    held = bool((diff <= SSD_TOL * (1 + want.float().abs())).all())
+    return _fwd_hold(args, got, want, float(diff.max()), SSD_TOL, held)
+
+
+def _bwd_hold(err_fn: Callable, scale_fn: Callable, limit_of: Callable
+              ) -> Callable[..., Tuple[float, str, bool]]:
+    """A backward kernel's hold: ``err_fn`` (each element over its terms'
+    magnitude, ``scale_fn``) within ``limit_of(dtype)``."""
+    def hold(args, kw, got, want):
+        err = err_fn(got, want, scale_fn(*args, **kw))
+        abs_err = max((float((g.float() - w.float()).abs().max())
+                       for g, w in zip(got, want) if g.numel()), default=0.0)
+        limit = limit_of(args[0].dtype)
+        return abs_err, f"bwd_err {err:.3g}, limit {limit}", err <= limit
+    return hold
+
+
+@dataclasses.dataclass(frozen=True)
+class PathKernel:
+    """A kernel of the model path: the module whose attribute of the
+    kernel's name the path calls, the plain version, the device kernels'
+    entry names as the profiler and nvcc show them, how one call is held
+    to the plain version (``hold(args, kw, got, want)`` -> max abs error,
+    what it was held to, whether it held), and for a forward kernel its
+    backward kernel and the profile's name for it."""
+    module: object
+    plain: Callable
+    entries: Tuple[str, ...]
+    hold: Callable[..., Tuple[float, str, bool]]
+    backward: str = ""
+    label: str = ""
+
+
+#: the model path's kernels: the forwards a prefill launches and the
+#: backwards that ``FlashAttention`` and ``SsdChunk`` call
+PATH_KERNELS = {
+    "ssd_chunk": PathKernel(ssm_mod, ssd_chunk_plain, ("ssd_chunk_tc",),
+                            _ssd_hold, "ssd_chunk_bwd", "ssd"),
+    "flash_attention": PathKernel(layers_mod, flash_attention_plain,
+                                  ("attn_kernel",), _flash_hold,
+                                  "flash_attention_bwd", "flash"),
+    "flash_attention_bwd": PathKernel(
+        BWD_MODULE, flash_attention_bwd_plain,
+        ("dsum_kernel", "dkdv_kernel", "dq_kernel"),
+        _bwd_hold(bwd_err, flash_attention_bwd_scale,
+                  lambda dt: BWD_ATOL[dt])),
+    "ssd_chunk_bwd": PathKernel(
+        SSD_BWD_MODULE, ssd_chunk_bwd_plain,
+        ("cum_kernel", "ssd_bwd_main", "dc_sum_kernel", "da_kernel"),
+        _bwd_hold(ssd_bwd_err, ssd_chunk_bwd_scale,
+                  lambda dt: SSD_BWD_ATOL)),
+}
 #: per family, the limits (max abs, mean abs, greedy-token share) that hold
 #: the kernels' bf16 logits to the plain versions'.  Whisper takes the
 #: dense family's (one attention kernel, 36 launches deep); the hybrid
@@ -1640,19 +1731,31 @@ def prefill_launches(cfg) -> Dict[str, int]:
     return {"flash_attention": cfg.n_layers}
 
 
+def train_launches(cfg) -> Dict[str, int]:
+    """Per kernel, its launches in one train step of ``cfg`` on the card:
+    each forward kernel of ``prefill_launches`` once a layer, twice under
+    ``cfg.remat`` (the forward and its recomputation), and its backward
+    kernel once."""
+    out = {}
+    for name, n in prefill_launches(cfg).items():
+        out[name] = (2 if cfg.remat else 1) * n
+        out[PATH_KERNELS[name].backward] = n
+    return out
+
+
 @contextlib.contextmanager
 def plain_kernel(cfg):
     """``cfg``'s prefill kernels replaced by their plain versions for the
     duration (the run the kernels' prefill is held to)."""
-    saved = {n: getattr(PREFILL_KERNELS[n][0], n)
+    saved = {n: getattr(PATH_KERNELS[n].module, n)
              for n in prefill_launches(cfg)}
     for n in saved:
-        setattr(PREFILL_KERNELS[n][0], n, PREFILL_KERNELS[n][1])
+        setattr(PATH_KERNELS[n].module, n, PATH_KERNELS[n].plain)
     try:
         yield
     finally:
         for n, kernel in saved.items():
-            setattr(PREFILL_KERNELS[n][0], n, kernel)
+            setattr(PATH_KERNELS[n].module, n, kernel)
 
 
 @contextlib.contextmanager
@@ -2006,14 +2109,14 @@ def decode_launches(cfg, steps: int) -> Dict[str, int]:
 @contextlib.contextmanager
 def record_calls(cfg, calls: Dict[tuple, tuple], backward: bool = False):
     """``cfg``'s model kernels (``prefill_launches``; with ``backward``
-    also ``flash_attention_bwd``) run as before for the duration, and the
+    also their backward kernels, ``train_launches``) run as before for
+    the duration, and the
     first call of each signature (kernel, shapes, strides, dtypes, other
     arguments) is kept in ``calls`` as (name, kernel, copies of its
     arguments, keywords), to be held to the plain version by
     ``hold_calls`` afterwards."""
-    names = list(prefill_launches(cfg)) + (["flash_attention_bwd"]
-                                           if backward else [])
-    saved = {n: getattr(HELD_KERNELS[n][0], n) for n in names}
+    names = list(train_launches(cfg) if backward else prefill_launches(cfg))
+    saved = {n: getattr(PATH_KERNELS[n].module, n) for n in names}
 
     def recording(name, kernel):
         def call(*args, **kw):
@@ -2028,49 +2131,24 @@ def record_calls(cfg, calls: Dict[tuple, tuple], backward: bool = False):
             return kernel(*args, **kw)
         return call
     for n, kernel in saved.items():
-        setattr(HELD_KERNELS[n][0], n, recording(n, kernel))
+        setattr(PATH_KERNELS[n].module, n, recording(n, kernel))
     try:
         yield
     finally:
         for n, kernel in saved.items():
-            setattr(HELD_KERNELS[n][0], n, kernel)
-
-
-def _call_err(name: str, args, kw, got, want) -> Tuple[float, str, bool]:
-    """One kept call's max abs error against its plain version, what it
-    was held to, and whether it held: ``flash_attention`` within
-    FLASH_ATOL of its dtype; ``ssd_chunk`` within SSD_TOL (1 + |want|);
-    ``flash_attention_bwd`` within BWD_ATOL by ``bwd_err`` (each element
-    over its terms' magnitude).  Same shapes and dtypes, finite."""
-    if name == "flash_attention_bwd":
-        err = bwd_err(got, want, flash_attention_bwd_scale(*args, **kw))
-        abs_err = max((float((g.float() - w.float()).abs().max())
-                       for g, w in zip(got, want)), default=0.0)
-        limit = BWD_ATOL[args[0].dtype]
-        return abs_err, f"bwd_err {err:.3g}, limit {limit}", err <= limit
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
-    if name == "flash_attention":
-        limit = FLASH_ATOL[args[0].dtype]
-        held = err <= limit
-    else:
-        limit = SSD_TOL
-        held = bool((diff <= SSD_TOL * (1 + want.float().abs())).all())
-    ok = got.shape == want.shape and got.dtype == want.dtype and \
-        bool(torch.isfinite(got).all())
-    return err, f"limit {limit}", held and ok
+            setattr(PATH_KERNELS[n].module, n, kernel)
 
 
 def hold_calls(calls: Dict[tuple, tuple], label: str) -> Dict[str, float]:
     """Each call ``record_calls`` kept, again on its kernel and on the
-    plain version, held by ``_call_err``.  Returns each kernel's largest
-    max abs error."""
+    plain version, held by its ``PathKernel.hold``.  Returns each
+    kernel's largest max abs error."""
     errs: Dict[str, float] = {}
     with torch.no_grad():
         for name, kernel, args, kw in calls.values():
             got = kernel(*args, **kw)
-            want = HELD_KERNELS[name][1](*args, **kw)
-            err, against, held = _call_err(name, args, kw, got, want)
+            want = PATH_KERNELS[name].plain(*args, **kw)
+            err, against, held = PATH_KERNELS[name].hold(args, kw, got, want)
             shapes = [tuple(a.shape) for a in args
                       if isinstance(a, torch.Tensor)]
             if not held:
@@ -2648,11 +2726,6 @@ def attach_model_paths(kernels: List[Dict], paths: Dict[str, Dict[str, int]],
 # ---------------------------------------------------------------------- #
 # 30-33: the training path
 # ---------------------------------------------------------------------- #
-#: the backward kernel's entry in the result line: it replaces no TPU
-#: kernel (the Pallas kernel has no VJP); the field names the kernel whose
-#: gradient it is
-BWD_INFO = ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "src/repro/kernels/flash_attention.py:113")
 #: ((b, h, hkv, sq, sk, d), causal) of phase flash_grad: OLMo-1B's train
 #: shape, Qwen2-7B's GQA prefill shape, Whisper's cross-attention (a
 #: ragged last key tile at 1,500 frames)
@@ -2675,6 +2748,210 @@ TRAIN_CONSISTENCY_SHAPE = (2, 1024)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 #: phase trainer: steps and checkpoint interval of the launcher's run
 TRAINER_STEPS, TRAINER_EVERY = 6, 3
+#: a case of phase ssd_grad off the kernel's 64-row tiles, N and P off 16
+#: (the card tests' ragged forward case)
+SSD_RAGGED = (2, 1, 100, 3, 24, 40)
+
+def ssd_grad_cases():
+    """((B, nc, l, H, P, N), strong decay) of phase ssd_grad: Mamba2-1.3B's
+    train shape (TRAIN_BATCH x TRAIN_SEQ), the reduced Jamba's prefill
+    shape (128 heads), the reference's first test shape (N 16 and P 32,
+    under the kernel's 64-wide tiles), the ragged case, and strong decay
+    (a uniform in (-5, 0]) at the reference's production chunk shape."""
+    return ((ssd_shape(TC.get(MODEL_ARCH), TRAIN_BATCH, TRAIN_SEQ), False),
+            (ssd_shape(hybrid_config(), PREFILL_BATCH, PREFILL_SEQ), False),
+            (SSD_SHAPES[0], False), (SSD_RAGGED, False),
+            (SSD_SHAPES[2], True))
+
+
+def ssd_bwd_flops(shape) -> Tuple[int, int]:
+    """Operations of the backward's products over the causal halves:
+    (those once per (b, c): G = C B^T, dC = dG B, dB = dG^T C; those per
+    head: dW = dY X^T, dX = W^T dY)."""
+    B, nc, l, H, P, N = shape
+    tri = l * (l + 1) // 2
+    return 3 * 2 * B * nc * tri * N, 2 * 2 * B * nc * H * tri * P
+
+
+def ssd_bwd_bound(shape, dtype) -> Tuple[float, str, str]:
+    """The least time (ms) of one ``ssd_chunk_bwd`` call on an H100, what
+    sets it and the route: x, a, b, c and dy (fp32) read once, dx, da, db
+    and dc written once, against ``ssd_bwd_flops`` on the fastest
+    fp32-accurate route of each product.  fp32: every product 3xTF32.
+    bf16: G = C B^T one pass at the bf16 peak (exact in fp32); dW, dC and
+    dB (one operand bf16, the other fp32: dY or dG) three passes at the
+    bf16 peak, the fp32 operand split three ways into bf16 as
+    ``csrc/ssd_chunk.cu`` splits S (330 TFLOP/s, faster than 2xTF32's
+    247); dX 3xTF32 (W and dY both fp32)."""
+    B, nc, l, H, P, N = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    xs, bcs, as_ = B * nc * l * H * P, B * nc * l * N, B * H * nc * l
+    nbytes = es * (2 * xs + 4 * bcs) + 4 * xs + 2 * 4 * as_
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    per_cell, per_head = ssd_bwd_flops(shape)
+    if dtype == torch.bfloat16:
+        g = per_cell // 3
+        t_ops = ((g + 3 * (2 * g + per_head // 2)) / PEAK_FLOPS[dtype]
+                 + 3 * (per_head // 2) / TF32_FLOPS) * 1e3
+        route = "bf16 G, bf16x3 dW dC dB, 3xTF32 dX"
+    else:
+        t_ops = 3 * (per_cell + per_head) / TF32_FLOPS * 1e3
+        route = "3xTF32 tensor cores"
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), route
+
+
+def _ssd_grad_inputs(shape, dtype, device: torch.device, seed: int,
+                     strong: bool):
+    """x, a, b, c as ``_ssd_inputs`` makes them (a uniform in (-5, 0]
+    under strong decay) and dy standard normal fp32."""
+    x, a, b, c = _ssd_inputs(shape, dtype, device, seed)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    if strong:
+        a = -5 * torch.rand(a.shape, generator=gen, device=device)
+    dy = torch.randn(x.shape, generator=gen, device=device)
+    return x, a, b, c, dy
+
+
+def _last_rows(l: int) -> int:
+    """The first row of the backward kernel's last 64-row tile."""
+    return (l - 1) // 64 * 64
+
+
+def _ssd_drop_head(kernel: Callable) -> Callable:
+    """A fault of the backward: db and dc from every head but the last (one
+    head left out of dG's sum); dx and da sound."""
+    def faulty(x, a, b, c, dy):
+        dx, da, db, dc = kernel(x, a, b, c, dy)
+        h = x.shape[3] - 1
+        _, _, db, dc = kernel(x[..., :h, :].contiguous(),
+                              a[:, :h].contiguous(), b, c,
+                              dy[..., :h, :].contiguous())
+        return dx, da, db, dc
+    return faulty
+
+
+def _ssd_drop_colsum_tile(kernel: Callable) -> Callable:
+    """A fault of the backward: the last row tile's rows left out of M's
+    column sums, so dcum gains their column sums and da their reverse
+    cumsum (computed in torch from the same inputs)."""
+    def faulty(x, a, b, c, dy):
+        dx, da, db, dc = kernel(x, a, b, c, dy)
+        l = x.shape[2]
+        r0 = _last_rows(l)
+        cum = torch.cumsum(a.double(), dim=-1).float()
+        keep = torch.arange(r0, l, device=x.device)[:, None] >= \
+            torch.arange(l, device=x.device)[None, :]
+        diff = cum[..., r0:, None] - cum[..., None, :]
+        L = torch.where(keep, torch.exp(torch.where(keep, diff, 0.0)), 0.0)
+        w = L * torch.einsum("bcin,bcjn->bcij", c[:, :, r0:].float(),
+                             b.float())[:, None]
+        dw = torch.einsum("bcihp,bcjhp->bhcij", dy[:, :, r0:], x.float())
+        col = (dw * w).sum(-2)
+        del L, w, dw
+        return dx, da + col.double().flip(-1).cumsum(-1).flip(-1).float(), \
+            db, dc
+    return faulty
+
+
+def _ssd_drop_dx_tile(kernel: Callable) -> Callable:
+    """A fault of the backward: dx without the last row tile's rows of dY
+    (dx from a call on dY with those rows zero); da, db, dc sound."""
+    def faulty(x, a, b, c, dy):
+        dx, da, db, dc = kernel(x, a, b, c, dy)
+        cut = dy.clone()
+        cut[:, :, _last_rows(x.shape[2]):] = 0.0
+        return kernel(x, a, b, c, cut)[0], da, db, dc
+    return faulty
+
+
+#: planted faults of ``ssd_chunk_bwd`` that phase ssd_grad's hold must
+#: catch at every case (tests/test_torch_ssd_grad.py plants the same in
+#: the CPU emulation of the kernel's arithmetic)
+SSD_BWD_FAULTS = {"drop_head": _ssd_drop_head,
+                  "drop_colsum_tile": _ssd_drop_colsum_tile,
+                  "drop_dx_tile": _ssd_drop_dx_tile}
+
+
+def phase_ssd_grad(device, cases=None, reps: int = 10, seed: int = 12,
+                   card: str = "") -> Dict:
+    """``ssd_chunk_bwd`` against ``ssd_chunk_bwd_plain`` on the same inputs
+    within SSD_BWD_ATOL by ``ssd_bwd_err`` (each gradient element's error,
+    less one bf16 rounding of a bf16 gradient, over the summed magnitude
+    of its terms), in bf16 and fp32, at each of ``ssd_grad_cases``; each
+    timed beside ``ssd_bwd_bound`` and the plain version's time, with its
+    TFLOP/s.  At every case each of ``SSD_BWD_FAULTS`` must fail that
+    hold, and a second call on the same inputs must give the same bits.
+    All readings are logged before the rules are enforced.  Returns the
+    bf16 record of the first case (the result line's), the fp32 one under
+    ``fp32`` and every case under ``cases``."""
+    device = torch.device(device)
+    recs, failed = [], []
+    for i, (shape, strong) in enumerate(cases or ssd_grad_cases()):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _ssd_grad_inputs(shape, dtype, device, seed + i, strong)
+            got = ssd_chunk_bwd(*args)
+            same = all(torch.equal(g, w) for g, w in
+                       zip(got, ssd_chunk_bwd(*args)))
+            want = ssd_chunk_bwd_plain(*args)
+            scale = ssd_chunk_bwd_scale(*args)
+            err = ssd_bwd_err(got, want, scale)
+            errs = [ssd_bwd_err([g], [w], [s])
+                    for g, w, s in zip(got, want, scale)]
+            abs_errs = [float((g.float() - w.float()).abs().max())
+                        for g, w in zip(got, want)]
+            del got
+            planted = {name: ssd_bwd_err(fault(ssd_chunk_bwd)(*args), want,
+                                         scale)
+                       for name, fault in SSD_BWD_FAULTS.items()}
+            del want, scale
+            if not err <= SSD_BWD_ATOL:
+                failed.append(f"{shape} {dtype} strong={strong}: {err}")
+            if not same:
+                failed.append(f"{shape} {dtype}: two calls differ")
+            failed += [f"{name} passed at {shape} {dtype}: {e}"
+                       for name, e in planted.items()
+                       if not e > SSD_BWD_ATOL]
+            bound, by, route = ssd_bwd_bound(shape, dtype)
+            r = {"shape": list(shape), "strong_decay": strong,
+                 "dtype": str(dtype).replace("torch.", ""),
+                 "max_abs_err": max(abs_errs), "scaled_err": err,
+                 "scaled_err_dx_da_db_dc": errs,
+                 "max_abs_err_dx_da_db_dc": abs_errs, "planted_err": planted,
+                 "bit_equal": same,
+                 "ms": _time_ms(lambda: ssd_chunk_bwd(*args), device, reps),
+                 "plain_ms": _time_ms(lambda: ssd_chunk_bwd_plain(*args),
+                                      device, reps),
+                 "bound_ms": bound, "bound_by": by, "bound_route": route,
+                 "library_ms": None}
+            tflops = sum(ssd_bwd_flops(shape)) / r["ms"] * 1e-9
+            log(f"ssd_grad {shape} strong={strong} {dtype} on "
+                f"{card or device}: bwd_err {err:.4g} (limit "
+                f"{SSD_BWD_ATOL}; dx / da / db / dc "
+                + " / ".join(f"{e:.3g}" for e in errs)
+                + "; max abs err " + " / ".join(f"{e:.3g}" for e in abs_errs)
+                + "); planted faults: "
+                + ", ".join(f"{n} {e:.4g}" for n, e in planted.items())
+                + f"; two calls bit-equal: {same}; {r['ms']:.4f} ms, "
+                f"{tflops:.1f} TFLOP/s, {bound / r['ms']:.1%} of the bound "
+                f"{bound:.4f} ms by {by} on {route} (plain "
+                f"{r['plain_ms']:.4f})")
+            recs.append(r)
+            del args
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"ssd_grad: {failed}")
+    for line in bwd_registers("ssd_chunk_bwd"):
+        log(f"ssd_grad registers: {line}")
+    return {"name": "ssd_chunk_bwd", "route": "cuda",
+            "source": KERNEL_INFO["ssd_chunk_bwd"][0],
+            "replaces": KERNEL_INFO["ssd_chunk_bwd"][1],
+            "replaces_note": "the gradient of that kernel, which has no VJP",
+            "launches": 0,
+            **{k: recs[0][k] for k in TIMED_KEYS + ("library_ms",)},
+            "fp32": {k: recs[1][k] for k in TIMED_KEYS + ("library_ms",)},
+            "cases": recs}
 
 
 def flash_bwd_flops(shape, causal: bool = True) -> int:
@@ -2748,22 +3025,27 @@ def _sdpa_bwd_ms(q, k, v, do, causal: bool, device, reps: int) -> float:
     return ms
 
 
-def bwd_registers() -> List[str]:
-    """nvcc's register and spill lines of the backward's kernels, each
-    named by its entry (from this process's build): the pass, the route
-    (bf16 wgmma in namespace ``hopper``, fp32 3xTF32 mma.sync in ``tc32``;
-    dsum by its element type) and the head dim."""
+def bwd_registers(lib: str = "flash_attention_bwd") -> List[str]:
+    """nvcc's register and spill lines of a backward kernel's launches
+    (``PATH_KERNELS[lib].entries``), each named by its entry (from this
+    process's build): the pass, the route (the flash backward's bf16
+    wgmma in namespace ``hopper``, fp32 3xTF32 mma.sync in ``tc32``;
+    otherwise by its element type) and the head dim where templated."""
     out, entry = [], ""
-    for ln in build.BUILD_LOGS.get("flash_attention_bwd", "").splitlines():
+    for ln in build.BUILD_LOGS.get(lib, "").splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
-            for part in BWD_PASSES:
+            for part in PATH_KERNELS[lib].entries:
                 if part in entry:
                     route = ("bf16 wgmma" if "hopper" in entry else
                              "fp32 mma.sync" if "tc32" in entry else
-                             "bf16" if "bfloat16" in entry else "fp32")
+                             "bf16" if "bfloat16" in entry else
+                             "fp32" if re.search(r"I(f|Lb0E)", entry)
+                             else "")
                     dim = re.search(r"Li(\d+)E", entry)
-                    entry = f"{part}<{route}, d {dim and dim.group(1)}>"
+                    tags = ([route] if route else []) + \
+                        ([f"d {dim.group(1)}"] if dim else [])
+                    entry = part + (f"<{', '.join(tags)}>" if tags else "")
         elif "registers" in ln or "spill" in ln:
             out.append(f"{entry}: {ln.strip()}")
     return out
@@ -2834,7 +3116,8 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
                 if device.type == "cuda" else {}
             r["pass_ms"] = {n: sum(us for k, us in by_name.items()
                                    if re.search(rf"\b{n}\b", k)) / 1e3
-                            for n in BWD_PASSES if by_name}
+                            for n in PATH_KERNELS["flash_attention_bwd"]
+                            .entries if by_name}
             tflops = flash_bwd_flops(shape, causal) / r["ms"] * 1e-9
             log(f"flash_grad {shape} {dtype} causal={causal} on "
                 f"{card or device}: max abs err dq / dk / dv "
@@ -2857,7 +3140,8 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
     for line in bwd_registers():
         log(f"flash_grad registers: {line}")
     rec = {"name": "flash_attention_bwd", "route": "cuda",
-           "source": BWD_INFO[0], "replaces": BWD_INFO[1],
+           "source": KERNEL_INFO["flash_attention_bwd"][0],
+           "replaces": KERNEL_INFO["flash_attention_bwd"][1],
            "replaces_note": "the gradient of that kernel, which has no VJP",
            "launches": 0,
            **{k: recs[0][k] for k in TIMED_KEYS + ("library_ms",)},
@@ -2868,10 +3152,19 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
 
 def _model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     """Model operations of one train step: 6 N T for the weights plus
-    the attention products (QK^T and PV, forward once and backward
-    twice) over the causal pairs; rematerialisation not counted."""
-    attn = 3 * cfg.n_layers * flash_flops(attn_shape(cfg, batch, seq))
-    return 6.0 * n_params * batch * seq + attn
+    the sequence mixers' products that no weight holds, forward once and
+    backward twice: attention's QK^T and PV over the causal pairs
+    (``flash_flops`` a layer), the SSD's stage 1, G = C B^T and (G o L) X
+    over each chunk's causal half (``ssd_flops`` a layer); the SSD's
+    other stages are left out, as are rematerialisation and the norms."""
+    layers = prefill_launches(cfg)
+    mix = 0
+    if "flash_attention" in layers:
+        mix += layers["flash_attention"] * flash_flops(
+            attn_shape(cfg, batch, seq))
+    if "ssd_chunk" in layers:
+        mix += layers["ssd_chunk"] * ssd_flops(ssd_shape(cfg, batch, seq))
+    return 6.0 * n_params * batch * seq + 3 * mix
 
 
 def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
@@ -2883,9 +3176,10 @@ def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
     on) over batches of the ported pipeline: ``warmup`` steps, then
     ``steps`` steps timed on the host clock, synced, every model
     kernel's count set to 0 just before and read just after.  Loss and
-    grad norm finite; on the card ``flash_attention`` launched twice a
-    layer a step (the forward and its recomputation) and the backward
-    once.  Returns the launches and the measurements."""
+    grad norm finite; on the card each forward kernel launched twice a
+    layer a step (the forward and its recomputation) and its backward
+    once (``train_launches``).  Returns the launches and the
+    measurements."""
     device = torch.device(device)
     params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
     n_params = sum(p.numel() for p in params.parameters())
@@ -2909,17 +3203,17 @@ def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
     _sync(device)
     dt = (time.perf_counter() - t0) / steps
     metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    want = train_launches(cfg)
     launches = {k.__name__: k.launches for k in MODEL_KERNELS
-                if k.__name__ != "ssd_chunk"}
+                if k.__name__ in want}
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
         else None
     profile = profile_step(lambda: step(params, state, data.global_batch_at(
         warmup + steps)), device) if device.type == "cuda" else None
     del params, state
     per_step = {n: c / steps for n, c in launches.items()}
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers} if device.type == "cuda" \
-        else {"flash_attention": 0, "flash_attention_bwd": 0}
+    if device.type != "cuda":
+        want = {n: 0 for n in want}
     if per_step != want:
         raise AssertionError(f"train step launched {per_step} a step, "
                              f"want {want}")
@@ -2936,14 +3230,11 @@ def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
         f"peak memory {peak if peak is None else f'{peak / 2**30:.2f} GiB'}"
         f"; loss / grad norm by step {metrics}; launches a step {per_step}")
     if profile is not None:
-        log_profile(profile, dt, cfg.name, card or str(device))
+        log_profile(profile, dt, cfg.name, card or str(device),
+                    mixers=tuple(prefill_launches(cfg)))
     return {"launches": launches, "s_per_step": dt, "tokens_per_s":
             tokens / dt, "mfu": mfu, "peak_bytes": peak,
             "n_params": n_params, "metrics": metrics}
-
-
-#: the backward kernel's passes, as the profiler names them
-BWD_PASSES = ("dsum_kernel", "dkdv_kernel", "dq_kernel")
 
 
 def profile_step(run: Callable[[], object], device) -> Dict:
@@ -2979,32 +3270,46 @@ def profile_step(run: Callable[[], object], device) -> Dict:
             "first_last_s": (end - spans[0][0]) * 1e-6 if spans else 0.0}
 
 
+def _device_ms(by_name: Dict[str, float], entries) -> float:
+    """Device ms of the profiled kernels whose names hold one of
+    ``entries`` as a word."""
+    return sum(us for k, us in by_name.items()
+               if any(re.search(rf"\b{e}", k) for e in entries)) / 1e3
+
+
 def log_profile(prof: Dict, step_s: float, name: str, card: str,
-                top: int = 15) -> None:
+                top: int = 15, mixers=("flash_attention",)) -> None:
     """The step's profile: device time summed by kernel name (the largest
-    ``top``), the attention backward's share of the step, and the
-    device's idle share: of the untraced step (``step_s``, the timed
-    steps' mean), of the traced window, and between the traced step's
-    first and last kernel."""
+    ``top``), each sequence mixer's backward kernel's share of the step
+    and of device time and its forward kernel's share of device time
+    (``mixers``: the forward kernels of the model), and the device's idle
+    share: of the untraced step (``step_s``, the timed steps' mean), of
+    the traced window, and between the traced step's first and last
+    kernel."""
     by_name = prof["by_name"]
     total = sum(by_name.values())
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"train_step profile {name} on {card}: {us / 1e3:.4f} ms "
             f"({us / total:.2%} of device time) {kname[:110]}")
-    bwd = sum(us for k, us in by_name.items()
-              if any(p in k for p in BWD_PASSES))
-    fwd = sum(us for k, us in by_name.items() if "attn_kernel" in k)
     wall, busy = prof["wall_s"], prof["busy_s"]
     span = prof["first_last_s"]
+    shares = []
+    for mixer in mixers:
+        k = PATH_KERNELS[mixer]
+        bwd = _device_ms(by_name, PATH_KERNELS[k.backward].entries)
+        fwd = _device_ms(by_name, k.entries)
+        label = k.label
+        shares.append(
+            f"{label} backward {bwd:.4f} ms ({bwd * 1e-3 / step_s:.2%} of "
+            f"the step, {bwd * 1e3 / total:.2%} of device time), {label} "
+            f"forward {fwd:.4f} ms ({fwd * 1e3 / total:.2%} of device "
+            f"time)")
     log(f"train_step profile {name} on {card}: one step traced, device "
         f"busy {busy:.4f} s; idle share {1 - busy / step_s:.2%} of the "
         f"untraced step ({step_s:.4f} s), {1 - busy / wall:.2%} of the "
         f"traced window ({wall:.4f} s on the host), "
         f"{1 - busy / span:.2%} between its first and last kernel "
-        f"({span:.4f} s); {len(by_name)} kernel names; flash backward "
-        f"{bwd / 1e3:.4f} ms ({bwd * 1e-6 / step_s:.2%} of the step, "
-        f"{bwd / total:.2%} of device time), flash forward "
-        f"{fwd / 1e3:.4f} ms ({fwd / total:.2%} of device time)")
+        f"({span:.4f} s); {len(by_name)} kernel names; " + "; ".join(shares))
 
 
 def _loss_and_grads(cfg, params, batch):
@@ -3018,14 +3323,15 @@ def _loss_and_grads(cfg, params, batch):
 def phase_train_consistency(device, cfg, shape=TRAIN_CONSISTENCY_SHAPE,
                             seed: int = 6, card: str = "") -> Dict:
     """In fp32, one train step's loss and every parameter's gradient
-    (the train step's ``api.loss_fn`` under autograd) with the attention
-    kernels, against the same with ``mha`` on the plain version
-    (``plain_kernel``; torch autograd through it): the loss within
-    TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_TOL of its max abs.
-    The kernels' counts are set to 0 just before the kernel run and read
-    just after (2 forward and 1 backward launches a layer on the card);
-    each forward and backward kernel call is held to its plain version
-    (``hold_calls``) on copies of its own inputs."""
+    (the train step's ``api.loss_fn`` under autograd) with the model's
+    kernels (attention or SSD and their backwards), against the same with
+    those kernels on their plain versions (``plain_kernel``; torch
+    autograd through them): the loss within TRAIN_LOSS_RTOL, each
+    gradient within TRAIN_GRAD_TOL of its max abs.  The kernels' counts
+    are set to 0 just before the kernel run and read just after
+    (``train_launches`` on the card: 2 forward and 1 backward launches a
+    layer); each forward and backward kernel call is held to its plain
+    version (``hold_calls``) on copies of its own inputs."""
     device = torch.device(device)
     cfg = dataclasses.replace(cfg, dtype="float32")
     b, s = shape
@@ -3040,14 +3346,14 @@ def phase_train_consistency(device, cfg, shape=TRAIN_CONSISTENCY_SHAPE,
     with record_calls(cfg, calls, backward=True):
         loss, grads = _loss_and_grads(cfg, params, batch)
     _sync(device)
+    want = train_launches(cfg)
     launches = {k.__name__: k.launches for k in MODEL_KERNELS
-                if k.__name__ != "ssd_chunk"}
+                if k.__name__ in want}
     with plain_kernel(cfg):
         plain_loss, plain = _loss_and_grads(cfg, params, batch)
     del params
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers} if device.type == "cuda" \
-        else {"flash_attention": 0, "flash_attention_bwd": 0}
+    if device.type != "cuda":
+        want = {n: 0 for n in want}
     if launches != want:
         raise AssertionError(f"train_consistency launched {launches}, "
                              f"want {want}")
@@ -3065,7 +3371,7 @@ def phase_train_consistency(device, cfg, shape=TRAIN_CONSISTENCY_SHAPE,
                              f"{worst_name} {worst:.3g} of its max (limit "
                              f"{TRAIN_GRAD_TOL})")
     log(f"train_consistency {cfg.name} fp32 {cfg.n_layers} layers, batch "
-        f"{b}x{s} on {card or device}: loss {loss:.7g}, plain attention "
+        f"{b}x{s} on {card or device}: loss {loss:.7g}, plain kernels "
         f"{plain_loss:.7g} (rel {loss_rel:.3g}); worst gradient "
         f"{worst_name} {worst:.3g} of its max abs; launches {launches}")
     held = hold_calls(calls, f"train_consistency {cfg.name}")
@@ -3105,7 +3411,7 @@ def phase_trainer(device, arch: str = TRAIN_ARCH,
         _sync(device)
         resumed_s = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in MODEL_KERNELS
-                    if k.__name__ != "ssd_chunk"}
+                    if k.__name__ in train_launches(first.cfg)}
         want_loss = first.metrics_log[-1]["loss"]
         got = resumed.metrics_log[-1]
         if state.step != steps or got["step"] != steps or \
@@ -3135,26 +3441,28 @@ def phase_trainer(device, arch: str = TRAIN_ARCH,
         shutil.rmtree(work, ignore_errors=True)
 
 
-def olmo_train_config(layers: Optional[int] = None):
-    """``TRAIN_ARCH``'s published config, its depth cut to ``layers``."""
-    cfg = TC.get(TRAIN_ARCH)
+def train_config(arch: str = TRAIN_ARCH, layers: Optional[int] = None):
+    """``arch``'s published config, its depth cut to ``layers``."""
+    cfg = TC.get(arch)
     return cfg if layers is None else dataclasses.replace(cfg,
                                                           n_layers=layers)
 
 
-def phase_training(device, card: str) -> Tuple[Dict, Dict[str, Dict],
+def phase_training(device, card: str) -> Tuple[List[Dict], Dict[str, Dict],
                                                Dict[str, Dict]]:
-    """Phases 30-33: flash_grad, train_step (OLMo-1B, full), then
-    train_consistency and trainer at ``TRAIN_CUT_LAYERS`` layers.
-    Returns the backward's record, each path's launches and the
-    consistency result."""
+    """Phases 30-36: flash_grad, train_step (OLMo-1B, full), then
+    train_consistency and trainer at ``TRAIN_CUT_LAYERS`` layers; then
+    ssd_grad, mamba2_train_step (Mamba2-1.3B, full) and
+    mamba2_train_consistency at ``TRAIN_CUT_LAYERS`` layers.  Returns the
+    two backward kernels' records, each path's launches and the
+    consistency results."""
     rec = _timed("flash_grad", card, phase_flash_grad, device, card=card)
     torch.cuda.empty_cache()
-    full = olmo_train_config()
+    full = train_config()
     step = _timed("train_step", card, phase_train_step, device, full,
                   card=card)
     torch.cuda.empty_cache()
-    cut = olmo_train_config(TRAIN_CUT_LAYERS)
+    cut = train_config(layers=TRAIN_CUT_LAYERS)
     log(f"training: {cut.name} = {TRAIN_ARCH} with n_layers "
         f"{full.n_layers} -> {TRAIN_CUT_LAYERS} in phases "
         f"train_consistency and trainer (widths, heads and vocab unchanged)")
@@ -3167,12 +3475,32 @@ def phase_training(device, card: str) -> Tuple[Dict, Dict[str, Dict],
         "s_per_step", "tokens_per_s", "mfu", "peak_bytes", "n_params")}
     rec["trainer"] = {k: trainer[k] for k in ("loss", "resumed_loss",
                                               "bit_equal", "write_s")}
+    ssd_rec = _timed("ssd_grad", card, phase_ssd_grad, device, card=card)
+    torch.cuda.empty_cache()
+    m_full = train_config(MODEL_ARCH)
+    m_step = _timed("mamba2_train_step", card, phase_train_step, device,
+                    m_full, card=card)
+    torch.cuda.empty_cache()
+    m_cut = train_config(MODEL_ARCH, TRAIN_CUT_LAYERS)
+    log(f"training: {m_cut.name} = {MODEL_ARCH} with n_layers "
+        f"{m_full.n_layers} -> {TRAIN_CUT_LAYERS} in phase "
+        f"mamba2_train_consistency (widths, heads, state and vocab "
+        f"unchanged)")
+    m_cons = _timed("mamba2_train_consistency", card,
+                    phase_train_consistency, device, m_cut, card=card)
+    torch.cuda.empty_cache()
+    ssd_rec["train_step"] = {k: m_step[k] for k in (
+        "s_per_step", "tokens_per_s", "mfu", "peak_bytes", "n_params")}
     # launches are summed over the paths by ``attach_model_paths``
     rec["launches_by_path"] = {}
+    ssd_rec["launches_by_path"] = {}
     paths = {"train_step": step["launches"],
              "train_consistency": cons["launches"],
-             "trainer": trainer["launches"]}
-    return rec, paths, {"train_consistency": cons}
+             "trainer": trainer["launches"],
+             "mamba2_train_step": m_step["launches"],
+             "mamba2_train_consistency": m_cons["launches"]}
+    return [rec, ssd_rec], paths, {"train_consistency": cons,
+                                   "mamba2_train_consistency": m_cons}
 
 
 def main() -> int:
@@ -3249,8 +3577,8 @@ def main() -> int:
     cons.update(family_cons)
     paths.update({p: cons[p]["launches"]
                   for p in ("consistency", "dense_consistency")})
-    bwd_rec, train_paths, train_cons = phase_training("cuda", smi)
-    kernels.append(bwd_rec)
+    bwd_recs, train_paths, train_cons = phase_training("cuda", smi)
+    kernels += bwd_recs
     paths.update(train_paths)
     cons.update(train_cons)
     attach_model_paths(kernels, paths, cons, throughput)

@@ -34,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 
 #: the kernel libraries: one per source file in csrc/
 SOURCES = ("search", "merge_path", "multi_merge", "ssd_chunk",
-           "flash_attention", "flash_attention_bwd", "block_sparse_matmul")
+           "flash_attention", "flash_attention_bwd", "block_sparse_matmul",
+           "ssd_chunk_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,9 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class KernelError(RuntimeError):
-    """A kernel that did not build, a launch that returned a CUDA error,
-    or a call no kernel serves (``ssd_chunk`` under autograd): never
-    retried."""
+    """A kernel that did not build or a launch that returned a CUDA
+    error: never retried."""
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -3,11 +3,12 @@
 The CUDA kernel (``csrc/ssd_chunk.cu``) replaces the reference's Pallas
 kernel ``_ssd_chunk_kernel``.  ``ssd_chunk`` launches it for tensors on
 a CUDA device and takes the plain version, ``ssd_chunk_plain``, only for
-tensors on the CPU.  The kernel has no backward yet: on a CUDA device a
-call whose inputs require a gradient (grad mode on) raises, where its
-output would otherwise carry no gradient at all; on the CPU the plain
-version is differentiable.  Both compute the decay the way the kernel does, as
-a difference of cumulative sums.
+tensors on the CPU.  Both compute the decay the way the kernel does, as
+a difference of cumulative sums.  When grad mode is on and an input
+requires a gradient, ``ssd_chunk`` goes through ``SsdChunk``: the
+forward kernel, then the hand-written backward kernel
+(``ssd_chunk_bwd.py``, ``csrc/ssd_chunk_bwd.cu``); on the CPU their plain
+versions.
 """
 from __future__ import annotations
 
@@ -70,20 +71,10 @@ def ssd_chunk_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return torch.einsum("bhcls,bcshp->bclhp", w, x.float())
 
 
-def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-              c: torch.Tensor) -> torch.Tensor:
-    """``ssd_chunk_plain``'s function; on a CUDA device, one launch of
-    the hand-written kernel (counted on ``ssd_chunk.launches``)."""
-    _check(x, a, b, c)
-    if x.device.type == "cpu":
-        return ssd_chunk_plain(x, a, b, c)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
-        raise build.KernelError(
-            "ssd_chunk: the kernel has no backward yet; an input requires "
-            "a gradient, and its output would carry none (on the CPU the "
-            "plain version is differentiable)")
+def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """One launch of the forward kernel on a CUDA device (counted on
+    ``ssd_chunk.launches``)."""
     B, nc, l, H, P = x.shape
     N = b.shape[-1]
     if l > MAX_CHUNK:
@@ -96,6 +87,42 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                                 c.data_ptr(), y.data_ptr(), B, nc, l, H, P,
                                 N, _DTYPES[x.dtype], stream))
     return y
+
+
+class SsdChunk(torch.autograd.Function):
+    """``ssd_chunk`` with its gradient: the forward kernel (on the CPU
+    ``ssd_chunk_plain``), then the backward kernel (on the CPU
+    ``ssd_chunk_bwd_plain``) on a contiguous dy.  Saves x, a, b and c,
+    not y."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c):
+        y = ssd_chunk_plain(x, a, b, c) if x.device.type == "cpu" \
+            else _launch(x, a, b, c)
+        ctx.save_for_backward(x, a, b, c)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from .ssd_chunk_bwd import ssd_chunk_bwd
+        x, a, b, c = ctx.saved_tensors
+        return ssd_chunk_bwd(x, a, b, c, dy.contiguous())
+
+
+def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor) -> torch.Tensor:
+    """``ssd_chunk_plain``'s function; on a CUDA device, one launch of
+    the hand-written kernel (counted on ``ssd_chunk.launches``).  When
+    grad mode is on and an input requires a gradient, through
+    ``SsdChunk``, on the CPU too."""
+    _check(x, a, b, c)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
+        return SsdChunk.apply(x, a, b, c)
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, a, b, c)
+    return _launch(x, a, b, c)
 
 
 ssd_chunk.launches = 0

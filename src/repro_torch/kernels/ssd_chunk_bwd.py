@@ -1,0 +1,227 @@
+"""``ssd_chunk_bwd``: the gradient of ``ssd_chunk``.
+
+The CUDA kernel (``csrc/ssd_chunk_bwd.cu``) replaces no TPU kernel: the
+reference's Pallas kernel ``_ssd_chunk_kernel`` has no VJP, and the
+reference trains through its plain jnp SSD.  The port's model path runs
+the forward kernel on the card, so its training path needs this
+gradient; ``ssd_chunk.SsdChunk`` calls it.
+
+For each (b, c, h), with G = C B^T, L[i, j] = exp(cum[i] - cum[j]) on and
+below the diagonal (cum = cumsum(a)) and W = G o L, the gradient of
+y = W X given dy is: dx = W^T dy; dW = dy x^T on and below the diagonal;
+dG = sum_h dW o L (over every head, since b and c are shared); dc = dG b,
+db = dG^T c; M = dW o W, dcum = rowsum(M) - colsum(M), da = the reverse
+cumsum of dcum.  dx, db and dc come back in their inputs' dtype, da in
+fp32.
+
+``ssd_chunk_bwd`` launches the kernel (fp32-accurate TF32 products, no
+atomics, so two calls give the same bits) for tensors on a CUDA device,
+and takes the plain version, ``ssd_chunk_bwd_plain``, only for tensors
+on the CPU.  The kernel is held to the plain version by ``bwd_err``:
+each gradient element's error, less the one bf16 rounding both versions
+make of a bf16 gradient, over the summed magnitude of its terms
+(``ssd_chunk_bwd_scale``), within ``ATOL``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from . import build
+from .ssd_chunk import _DTYPES, MAX_CHUNK, _check
+
+#: repro_ssd_chunk_bwd(x, a, b, c, dy, dx, da, db, dc, scratch, B, nc, l,
+#: H, P, N, dtype, stream)
+_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + \
+    (ctypes.c_void_p,)
+#: the kernel's head dim: one 64-column tile of X and dY a head
+MAX_HEAD_DIM = 64
+#: the kernel's row tiles: its scratch holds per-tile shares of dC and of
+#: M's row sums
+TILE = 64
+#: kernel vs plain version: ``bwd_err``'s measure, each gradient
+#: element's error over the summed magnitude of its terms, after one
+#: bf16 rounding of a bf16 gradient is taken out (``BF16_ROUNDING``).
+#: What is left is fp32 arithmetic in both dtypes (dy, W and dG are fp32,
+#: and every product of the kernel is fp32-accurate on the TF32 tensor
+#: cores): products within about 2^-21 of a term (3xTF32, or 2xTF32 with
+#: an operand exact in TF32); exp within 2 + floor(1.16 |e|) ulp
+#: (``__expf`` of e <= 0, at most a few 1e-6 where L is not negligible);
+#: the tensor cores' truncating accumulation, up to an ulp a k8 step into
+#: a fresh accumulator of at most 8 steps (1e-6); fp32 sums of a few
+#: hundred terms in another order than the plain version's (about
+#: sqrt(n) 2^-24, 1e-6).  The CPU emulation of the kernel's arithmetic
+#: (tests/test_torch_ssd_grad.py) reads at most 4e-7; with dy rounded
+#: once to TF32 instead of split it reads 4.5e-5 to 2.2e-4, over the limit.
+ATOL = 1e-5
+#: two roundings to bf16 (8 significant bits, round to nearest) of fp32
+#: values that differ by d are at most d + 2^-8 (1 + 2^-7) (|u| + |v|)
+#: apart: at most d + BF16_ROUNDING max(|u|, |v|)
+BF16_ROUNDING = 2.0 ** -7 * (1 + 2.0 ** -7)
+#: an element's scale is at least this share of its gradient's largest
+#: scale, so that a product that underflows in one version and not the
+#: other (a term of a few 1e-38) is no error
+SCALE_FLOOR = 1e-6
+
+
+def _check_bwd(x, a, b, c, dy) -> None:
+    _check(x, a, b, c)
+    if dy.shape != x.shape or dy.dtype != torch.float32:
+        raise ValueError(f"ssd_chunk_bwd: dy must be float32 "
+                         f"{tuple(x.shape)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    if dy.device != x.device:
+        raise ValueError(f"ssd_chunk_bwd: x on {x.device}, dy on "
+                         f"{dy.device}")
+    if not dy.is_contiguous():
+        raise ValueError("ssd_chunk_bwd: dy must be contiguous")
+
+
+def _decay(a: torch.Tensor) -> torch.Tensor:
+    """L [B, H, nc, l, l]: exp(cum[i] - cum[j]) on and below the
+    diagonal, 0 above; cum summed in float64 and rounded once, as
+    ``ssd_chunk_plain`` takes it."""
+    cum = torch.cumsum(a.double(), dim=-1).float()
+    diff = cum[..., :, None] - cum[..., None, :]
+    l = a.shape[-1]
+    mask = torch.ones(l, l, dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+
+
+def _reverse_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """out[k] = v[k] + ... + v[l - 1], summed in float64 and rounded once
+    (autograd's gradient of the float64 cumsum in ``ssd_chunk_plain``)."""
+    return v.double().flip(-1).cumsum(-1).flip(-1).float()
+
+
+def ssd_chunk_bwd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, dy: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """(dx, da, db, dc) of ``ssd_chunk_plain`` given dy, written out in
+    fp32 from the closed form (the module docstring), evaluated only on
+    and below the diagonal: L is 0 above it, so W, dW o L and M are too.
+    dx, db and dc in their inputs' dtype, da in fp32."""
+    _check_bwd(x, a, b, c, dy)
+    bf, cf = b.float(), c.float()
+    L = _decay(a)                                             # [B,H,nc,l,s]
+    w = L * torch.einsum("bcln,bcsn->bcls", cf, bf)[:, None]
+    dx = torch.einsum("bhcls,bclhp->bcshp", w, dy)
+    dw = torch.einsum("bclhp,bcshp->bhcls", dy, x.float())
+    dg = (dw * L).sum(1)                                      # [B,nc,l,s]
+    del L
+    m = dw * w
+    del dw, w
+    dcum = m.sum(-1) - m.sum(-2)                              # [B,H,nc,l]
+    del m
+    dc = torch.einsum("bcls,bcsn->bcln", dg, bf)
+    db = torch.einsum("bcls,bcln->bcsn", dg, cf)
+    return (dx.to(x.dtype), _reverse_cumsum(dcum), db.to(b.dtype),
+            dc.to(c.dtype))
+
+
+def ssd_chunk_bwd_scale(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, dy: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """The summed magnitude of the terms of each element of (dx, da, db,
+    dc), fp32, from ``ssd_chunk_bwd_plain``'s formulas with every factor
+    taken by its magnitude: |G| <= |C| |B|^T, |W| <= |G| L, |dx| <=
+    |W|^T |dy|, |dW| <= |dy| |x|^T (on and below the diagonal), |dG| <=
+    sum_h |dW| L, |dc| <= |dG| |b|, |db| <= |dG|^T |c|, |M| <= |dW| |W|,
+    and for da the reverse cumsum of rowsum(|M|) + colsum(|M|).  A
+    rounding of each term by a relative u moves an element by at most u
+    times its scale; ``bwd_err`` measures the error in these units."""
+    bf, cf = b.float().abs(), c.float().abs()
+    L = _decay(a)
+    aw = L * torch.einsum("bcln,bcsn->bcls", cf, bf)[:, None]
+    ady = dy.abs()
+    sdx = torch.einsum("bhcls,bclhp->bcshp", aw, ady)
+    adw = torch.einsum("bclhp,bcshp->bhcls", ady, x.float().abs())
+    l = a.shape[-1]
+    adw = torch.where(torch.ones(l, l, dtype=torch.bool,
+                                 device=a.device).tril(), adw, 0.0)
+    adg = (adw * L).sum(1)
+    del L
+    am = adw * aw
+    del adw, aw
+    sda = _reverse_cumsum(am.sum(-1) + am.sum(-2))
+    del am
+    return (sdx, sda, torch.einsum("bcls,bcln->bcsn", adg, cf),
+            torch.einsum("bcls,bcsn->bcln", adg, bf))
+
+
+def bwd_err(got, want, scale) -> float:
+    """The largest error of (dx, da, db, dc) ``got`` against ``want``:
+    each element's |got - want|, less BF16_ROUNDING max(|got|, |want|)
+    where the gradient is bf16 (both versions round it once), over its
+    ``scale`` (``ssd_chunk_bwd_scale``; at least SCALE_FLOOR of its
+    gradient's largest): ``ATOL``'s measure.  inf on a wrong shape or
+    dtype or a non-finite value."""
+    worst = 0.0
+    for g, w, s in zip(got, want, scale):
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not bool(torch.isfinite(g).all()):
+            return math.inf
+        if g.numel() == 0:
+            continue
+        gf, wf = g.float(), w.float()
+        diff = (gf - wf).abs()
+        if g.dtype == torch.bfloat16:
+            diff = (diff - BF16_ROUNDING * torch.maximum(gf.abs(), wf.abs())
+                    ).clamp_min(0.0)
+        floor = SCALE_FLOOR * float(s.max())
+        if floor == 0.0:
+            if bool((diff != 0).any()):
+                return math.inf
+            continue
+        worst = max(worst, float((diff / s.clamp_min(floor)).max()))
+    return worst
+
+
+def ssd_chunk_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, dy: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """``ssd_chunk_bwd_plain``'s function; on a CUDA device, one call of
+    the hand-written kernel's four launches (counted once, on
+    ``ssd_chunk_bwd.launches``).  Outside the kernel's domain (chunk
+    above MAX_CHUNK, head dim above MAX_HEAD_DIM, devices) it raises."""
+    _check_bwd(x, a, b, c, dy)
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_plain(x, a, b, c, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd: no kernel for device {x.device}")
+    B, nc, l, H, P = x.shape
+    N = b.shape[-1]
+    if l > MAX_CHUNK:
+        raise ValueError(f"ssd_chunk_bwd: chunk length {l} > {MAX_CHUNK}")
+    if P > MAX_HEAD_DIM:
+        raise ValueError(f"ssd_chunk_bwd: head dim {P} > {MAX_HEAD_DIM}")
+    dx = torch.zeros_like(x) if H * P == 0 else torch.empty_like(x)
+    da = torch.empty_like(a)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    if B * nc * l == 0:
+        return dx, da, db, dc
+    n_rt = -(-l // TILE)
+    scratch = torch.empty(B * H * nc * n_rt * TILE
+                          + n_rt * (B * H * nc * l + B * nc * l * N),
+                          dtype=torch.float32, device=x.device)
+    fn = build.function("ssd_chunk_bwd", "repro_ssd_chunk_bwd", _ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _COUNTER.launches += 1
+    build.check("ssd_chunk_bwd", fn(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(),
+        dc.data_ptr(), scratch.data_ptr(), B, nc, l, H, P, N,
+        _DTYPES[x.dtype], stream))
+    return dx, da, db, dc
+
+
+ssd_chunk_bwd.launches = 0
+#: the function whose ``launches`` count the kernel's launches, whatever
+#: the module's name is bound to later (a recording or a planted fault)
+_COUNTER = ssd_chunk_bwd

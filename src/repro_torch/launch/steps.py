@@ -5,7 +5,8 @@ A step runs on the CUDA device unless ``make_*_step`` is given another
 ``device``; without a card and without ``device="cpu"`` it raises.  The
 prefill and serve steps run under ``torch.inference_mode``.  The train
 step takes the gradient of ``api.loss_fn`` by autograd (on the card the
-attention's gradient is the ``flash_attention`` backward kernel) and
+attention's gradient is the ``flash_attention`` backward kernel, the
+SSD's the ``ssd_chunk`` backward kernel) and
 updates the module's parameters in place.  The reference's input-spec
 builders (``batch_specs``, ``param_specs``, ...) serve its dry run and
 wait for that port (ROADMAP.md).

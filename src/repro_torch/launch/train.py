@@ -9,8 +9,10 @@ published config, which ``--layers`` may cut in depth (its widths kept).
 Checkpoints go to ``--ckpt-dir`` (a run resumes from the newest one
 there) or, without it, to a fresh temporary directory, whose name the
 launcher prints.  Runs on the CUDA device unless ``--device`` names
-another.  ``--dp`` and
-``--tp`` other than 1 raise: the port has no sharding yet.
+another.  ``--seq`` defaults to 128, raised to the config's SSD chunk
+for the SSM and hybrid families (256 at full width); a ``--seq`` that is
+not a multiple of the chunk raises.  ``--dp`` and ``--tp`` other than 1
+raise: the port has no sharding yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,23 @@ from typing import Optional, Sequence
 import repro_torch.configs as C
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
+DEFAULT_SEQ = 128
+
+
+def train_seq(cfg, seq: Optional[int]) -> int:
+    """The sequence length to train ``cfg`` at: ``seq``, or DEFAULT_SEQ
+    rounded up to a multiple of the SSD chunk where ``cfg`` has SSM
+    layers.  A ``seq`` those layers cannot split into whole chunks
+    raises."""
+    chunk = cfg.ssm.chunk if cfg.family in ("ssm", "hybrid") else 1
+    if seq is None:
+        return -(-DEFAULT_SEQ // chunk) * chunk
+    if seq <= 0 or seq % chunk:
+        raise ValueError(f"--seq {seq}: {cfg.name}'s SSD splits the sequence "
+                         f"into chunks of {chunk}; give a positive multiple "
+                         f"of {chunk}")
+    return seq
+
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     ap = argparse.ArgumentParser()
@@ -30,7 +49,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                     help="keep this many layers of the config (depth cut)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--seq", type=int, default=None,
+                    help=f"tokens a sequence (default {DEFAULT_SEQ}, or the "
+                         f"SSD chunk if larger)")
     ap.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint directory, resumed from if it holds "
                          "one (default: a fresh temporary directory)")
@@ -51,10 +72,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    seq = train_seq(cfg, args.seq)
     tcfg = TrainerConfig(total_steps=args.steps,
                          checkpoint_every=args.ckpt_every,
                          log_every=args.log_every,
-                         global_batch=args.batch, seq_len=args.seq,
+                         global_batch=args.batch, seq_len=seq,
                          accum_steps=args.accum,
                          **({} if args.ckpt_dir is None else
                             {"checkpoint_dir": args.ckpt_dir}))

@@ -12,10 +12,9 @@ Batch layout per family:
 
 The moe and hybrid forwards return ``(logits, aux)``; ``loss_fn`` adds
 the router's auxiliary loss.  ``loss_fn`` is differentiable: under
-autograd the dense, vlm, MoE and encoder-decoder families run the
-``flash_attention`` backward kernel on the card, and every family its
-plain versions on the CPU; the ssm and hybrid families take gradients
-on the CPU only until ``ssd_chunk`` has a backward kernel.
+autograd every family runs the backward kernels of its forward kernels
+on the card (``flash_attention``'s for attention, ``ssd_chunk``'s for
+the SSM layers) and their plain versions on the CPU.
 """
 from __future__ import annotations
 

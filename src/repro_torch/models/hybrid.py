@@ -134,8 +134,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor
 def loss_fn(cfg: ModelConfig, params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Cross entropy plus, with MoE layers, the router's auxiliary
-    loss.  On the card its gradient waits for an ``ssd_chunk`` backward:
-    ``ssd_chunk`` raises under autograd there."""
+    loss."""
     logits, aux = forward(cfg, params, batch["tokens"])
     loss = L.softmax_xent(logits, batch["labels"])
     if cfg.moe is not None:

@@ -9,7 +9,8 @@ The chunked SSD algorithm is a cascade over a partitioned S rank:
     (4) state out:    Y_off[c, l] = C[c, l] . decay . S'[c-1]
 
 Stage (1) is the quadratic block and runs on the hand-written kernel
-``kernels.ssd_chunk`` (its plain version for tensors on the CPU); stages
+``kernels.ssd_chunk`` (its plain version for tensors on the CPU), and
+under autograd on its backward kernel too (``kernels.SsdChunk``); stages
 (2-4) are plain PyTorch, the reference's ``lax.scan`` a loop over chunks.
 
 Parameters sit in ``Params`` modules (``MambaLayer``, ``MambaBlock``,
@@ -272,8 +273,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg: ModelConfig, params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Token-mean cross entropy.  On the card its gradient waits for an
-    ``ssd_chunk`` backward: ``ssd_chunk`` raises under autograd there."""
+    """Token-mean cross entropy."""
     logits = forward(cfg, params, batch["tokens"])
     return L.softmax_xent(logits, batch["labels"])
 

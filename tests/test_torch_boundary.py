@@ -78,6 +78,24 @@ for r in reqs:
 server.drain()
 assert all(r.done and len(r.out) == 3 for r in reqs)
 
+from repro_torch.launch.steps import make_train_step
+from repro_torch.kernels import ssd_chunk_bwd, ssd_chunk_bwd_plain
+from repro_torch.models import api
+from repro_torch.optim import optimizers as opt
+params = api.init(cfg, torch.Generator().manual_seed(0))
+o = opt.adamw(1e-3)
+state = o.init(dict(params.named_parameters()))
+step = make_train_step(cfg, o, device="cpu")
+batch = api.make_batch(cfg, torch.Generator().manual_seed(1), 2, 32)
+params, state, m = step(params, state, batch)
+assert bool(torch.isfinite(m["loss"])) and ssd_chunk_bwd.launches == 0
+g = torch.Generator().manual_seed(2)
+x, dy = (torch.randn(1, 2, 16, 2, 8, generator=g) for _ in range(2))
+a = -torch.rand(1, 2, 2, 16, generator=g)
+b, c = (torch.randn(1, 2, 16, 4, generator=g) for _ in range(2))
+assert all(torch.equal(u, v) for u, v in zip(
+    ssd_chunk_bwd(x, a, b, c, dy), ssd_chunk_bwd_plain(x, a, b, c, dy)))
+
 from repro_torch.bench import kernels_bench
 dense = C.get_smoke("qwen2-7b")
 server = Server(dense, batch=2, max_len=32, device="cpu")
@@ -86,7 +104,6 @@ logits = make_prefill_step(dense, device="cpu")(
 assert logits.shape == (1, 32, 512) and bool(torch.isfinite(logits).all())
 assert all(r.err <= r.limit for r in kernels_bench.run("cpu", reps=1))
 
-from repro_torch.models import api
 for arch in ("qwen2-moe-a2.7b", "whisper-small", "jamba-1.5-large-398b"):
     cfg = C.get_smoke(arch)
     params = api.init(cfg, torch.Generator().manual_seed(0))
@@ -928,11 +945,12 @@ def test_chip_smoke_training_phases_rehearse_on_cpu(chip_smoke):
 def test_train_step_profile_shares(chip_smoke, capsys):
     """``log_profile``: device time by kernel name, the flash backward's
     share (its three passes by name) and the idle shares, from a profile
-    of known numbers; ``BWD_PASSES`` names the backward's entries in
-    its source."""
-    src = (ROOT / chip_smoke.BWD_INFO[0]).read_text()
-    assert all(re.search(rf"\b{name}\(", src)
-               for name in chip_smoke.BWD_PASSES)
+    of known numbers; its ``PathKernel.entries`` name the backward's
+    entries in its source."""
+    src = (ROOT / chip_smoke.KERNEL_INFO["flash_attention_bwd"][0]
+           ).read_text()
+    assert all(re.search(rf"\b{name}\(", src) for name in
+               chip_smoke.PATH_KERNELS["flash_attention_bwd"].entries)
     prof = {"wall_s": 1.0, "busy_s": 0.45, "first_last_s": 0.5,
             "by_name": {"hopper::dkdv_kernel<128>": 3000.0,
                         "hopper::dq_kernel<128>": 2000.0,
@@ -959,3 +977,106 @@ def test_flash_bwd_bound_at_the_train_shape(chip_smoke):
     assert abs(ms - 0.348) < 0.001
     fwd, _, _ = chip_smoke.flash_bound(shape, torch.bfloat16)
     assert ms == pytest.approx(2.5 * fwd, rel=1e-6)
+
+
+def test_chip_smoke_ssd_training_phases_rehearse_on_cpu(chip_smoke):
+    """Phases 34-36 at a tiny size on the CPU (the plain versions, no
+    launches): the SSD backward held to its plain version, every planted
+    fault caught and two calls bit-equal; the smoke Mamba2's train step
+    and its fp32 consistency step, whose forward and backward calls are
+    held."""
+    import repro_torch.configs as C
+    torch.exp(torch.rand(1 << 22))       # see the model phases' test
+    rec = chip_smoke.phase_ssd_grad(
+        "cpu", cases=((chip_smoke.SSD_SHAPES[0], False),
+                      (chip_smoke.SSD_RAGGED, True)), reps=1)
+    assert rec["name"] == "ssd_chunk_bwd" and rec["route"] == "cuda"
+    assert (ROOT / rec["source"]).exists()
+    assert rec["replaces"] == "src/repro/kernels/ssd_chunk.py:62"
+    assert set(rec["fp32"]) == set(chip_smoke.TIMED_KEYS) | {"library_ms"}
+    assert rec["library_ms"] is None and rec["fp32"]["library_ms"] is None
+    assert len(rec["cases"]) == 4 and rec["max_abs_err"] == 0.0
+    assert all(c["scaled_err"] == 0.0 and c["bit_equal"]
+               for c in rec["cases"])
+    assert all(set(c["planted_err"]) == set(chip_smoke.SSD_BWD_FAULTS) and
+               min(c["planted_err"].values()) > 10 * chip_smoke.SSD_BWD_ATOL
+               for c in rec["cases"])
+    cfg = C.get_smoke("mamba2-1.3b")
+    step = chip_smoke.phase_train_step("cpu", cfg, batch=2, seq=64,
+                                       warmup=1, steps=2)
+    assert step["launches"] == {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
+    assert all(np.isfinite(x) for pair in step["metrics"] for x in pair)
+    cons = chip_smoke.phase_train_consistency("cpu", cfg, shape=(2, 32))
+    # the same forward; the Function's plain backward against autograd
+    # through the plain forward: fp32 reassociation of da's sums only
+    assert cons["loss_rel"] == 0.0 and cons["grad_rel"] <= 1e-5
+    assert cons["held"] == {"ssd_chunk": 0.0, "ssd_chunk_bwd": 0.0}
+
+
+def test_chip_smoke_train_launches_and_model_flops(chip_smoke):
+    """Each forward kernel twice a layer a step under remat and its
+    backward once: Mamba2-1.3B 96 and 48, OLMo-1B 32 and 16; the model
+    FLOPs add the mixers' products three times (forward once, backward
+    twice): OLMo's attention as before, Mamba2's SSD stage 1."""
+    import repro_torch.configs as C
+    mamba, olmo = C.get("mamba2-1.3b"), C.get("olmo-1b")
+    assert chip_smoke.train_launches(mamba) == {"ssd_chunk": 96,
+                                                "ssd_chunk_bwd": 48}
+    assert chip_smoke.train_launches(olmo) == {"flash_attention": 32,
+                                               "flash_attention_bwd": 16}
+    assert chip_smoke.train_launches(chip_smoke.hybrid_config()) == {
+        "flash_attention": 2, "flash_attention_bwd": 1, "ssd_chunk": 14,
+        "ssd_chunk_bwd": 7}
+    n, b, s = 1_000_000, 8, 2048
+    assert chip_smoke._model_flops(olmo, n, b, s) == 6.0 * n * b * s + \
+        3 * 16 * chip_smoke.flash_flops(chip_smoke.attn_shape(olmo, b, s))
+    shape = chip_smoke.ssd_shape(mamba, b, s)
+    assert shape == (8, 8, 256, 64, 64, 128)
+    assert chip_smoke._model_flops(mamba, n, b, s) == 6.0 * n * b * s + \
+        3 * 48 * chip_smoke.ssd_flops(shape)
+
+
+def test_ssd_bwd_bound_at_the_train_shape(chip_smoke):
+    """36.1 GFLOP over the causal halves at Mamba2-1.3B's train shape,
+    almost all per head; bf16: 561 MB (0.168 ms) over the operations on
+    their fastest routes (G at the bf16 peak, dW, dC, dB three bf16
+    passes, dX 3xTF32: 0.161 ms); fp32: 830 MB (0.253 ms) over 3xTF32's
+    0.219 ms.  Jamba's shape is bound by its bytes in both dtypes."""
+    shape = (8, 8, 256, 64, 64, 128)
+    per_cell, per_head = chip_smoke.ssd_bwd_flops(shape)
+    assert abs((per_cell + per_head) / 1e9 - 36.1) < 0.1
+    assert per_head == 2 * 2 * 8 * 8 * 64 * (256 * 257 // 2) * 64
+    ms, by, route = chip_smoke.ssd_bwd_bound(shape, torch.bfloat16)
+    assert by == "bytes" and abs(ms - 0.1678) < 0.0001
+    assert route == "bf16 G, bf16x3 dW dC dB, 3xTF32 dX"
+    ms, by, route = chip_smoke.ssd_bwd_bound(shape, torch.float32)
+    assert by == "bytes" and abs(ms - 0.2529) < 0.0001
+    assert route == "3xTF32 tensor cores"
+    jamba = (4, 8, 256, 128, 64, 128)
+    assert [chip_smoke.ssd_bwd_bound(jamba, dt)[1] for dt in
+            (torch.bfloat16, torch.float32)] == ["bytes", "bytes"]
+    assert chip_smoke.ssd_grad_cases()[:2] == (
+        ((8, 8, 256, 64, 64, 128), False), ((4, 8, 256, 128, 64, 128),
+                                            False))
+
+
+def test_ssd_train_step_profile_shares(chip_smoke, capsys):
+    """``log_profile`` for an SSM step: the SSD backward's four launches
+    by name (its ``PathKernel.entries``, each an entry of its source) and
+    the forward kernel."""
+    for name, k in chip_smoke.PATH_KERNELS.items():
+        src = (ROOT / chip_smoke.KERNEL_INFO[name][0]).read_text()
+        assert all(re.search(rf"\b{e}\(", src) for e in k.entries), name
+    prof = {"wall_s": 1.0, "busy_s": 0.9, "first_last_s": 0.95,
+            "by_name": {"(anonymous namespace)::ssd_bwd_main<true>": 40e3,
+                        "(anonymous namespace)::cum_kernel(float)": 1e3,
+                        "(anonymous namespace)::dc_sum_kernel<float>": 2e3,
+                        "(anonymous namespace)::da_kernel(float)": 7e3,
+                        "tc::ssd_chunk_tc(bf16)": 20e3,
+                        "at::native::cumsum_kernel": 30e3,
+                        "nvjet_gemm": 900e3}}
+    chip_smoke.log_profile(prof, 1.0, "mamba2", "card", mixers=("ssd_chunk",))
+    out = capsys.readouterr().out
+    assert "ssd backward 50.0000 ms (5.00% of the step, 5.00% of device " \
+        "time), ssd forward 20.0000 ms (2.00% of device time)" in out
+    assert "flash" not in out

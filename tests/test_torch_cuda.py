@@ -1098,22 +1098,94 @@ def test_flash_attention_bwd_rejects_an_unsupported_head_dim(cuda_device):
         flash_attention_bwd(q, q, q, q, lse, q)
 
 
+def _ssd_grad_inputs(shape, dtype, device, seed, strong=False):
+    B, nc, l, H, P, N = shape
+    g = torch.Generator(device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=device)
+    a = -5 * torch.rand(B, H, nc, l, generator=g, device=device) if strong \
+        else -randn(B, H, nc, l).abs() * 0.1
+    return (randn(B, nc, l, H, P).to(dtype), a, randn(B, nc, l, N).to(dtype),
+            randn(B, nc, l, N).to(dtype), randn(B, nc, l, H, P))
+
+
+#: the SSD backward's card cases: the production chunk and, off its
+#: 64-row tiles, the ragged case (N and P off 16)
+SSD_GRAD_CASES = [(1, 2, 256, 8, 64, 128), (2, 1, 100, 3, 24, 40)]
+
+
 @pytest.mark.cuda
-def test_ssd_chunk_raises_under_grad_on_card(cuda_device):
-    """No backward kernel yet: an input that requires a gradient raises
-    (a ``KernelError``, which crash recovery never retries), where a
-    silent output without a ``grad_fn`` would drop the gradient."""
-    from repro_torch.kernels.build import KernelError
-    B, nc, l, H, P, N = 1, 2, 64, 2, 32, 16
-    g = torch.Generator(cuda_device).manual_seed(0)
-    x = torch.randn(B, nc, l, H, P, generator=g, device=cuda_device)
-    a = -torch.rand(B, H, nc, l, generator=g, device=cuda_device)
-    b = torch.randn(B, nc, l, N, generator=g, device=cuda_device)
-    c = torch.randn(B, nc, l, N, generator=g, device=cuda_device)
-    with pytest.raises(KernelError, match="no backward"):
-        ssd_chunk(x.requires_grad_(), a, b, c)
+@pytest.mark.parametrize("shape", SSD_GRAD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssd_chunk_grad_on_card_matches_plain(cuda_device, shape, dtype):
+    """Inputs that require a gradient take ``SsdChunk``: one forward and
+    one backward launch, and the gradients of every input within ATOL of
+    the plain backward by ``bwd_err``."""
+    from repro_torch.kernels import ssd_chunk_bwd, ssd_chunk_bwd_plain
+    from repro_torch.kernels.ssd_chunk_bwd import (ATOL, bwd_err,
+                                                   ssd_chunk_bwd_scale)
+    x, a, b, c, dy = _ssd_grad_inputs(shape, dtype, cuda_device, 4)
+    leaves = [t.clone().requires_grad_() for t in (x, a, b, c)]
+    f0, b0 = ssd_chunk.launches, ssd_chunk_bwd.launches
+    y = ssd_chunk(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (ssd_chunk.launches, ssd_chunk_bwd.launches) == (f0 + 1, b0 + 1)
+    want = ssd_chunk_bwd_plain(x, a, b, c, dy)
+    assert bwd_err(got, want, ssd_chunk_bwd_scale(x, a, b, c, dy)) <= ATOL
     with torch.no_grad():
-        assert ssd_chunk(x, a, b, c).shape == (B, nc, l, H, P)
+        assert ssd_chunk(*leaves).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 512, 2, 32, 16),
+                                   (1, 2, 256, 8, 64, 128)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssd_chunk_bwd_bit_equal_on_card(cuda_device, shape, dtype):
+    """No atomics: two calls on the same inputs give the same bits, under
+    strong decay and at the longest chunk (l 512 recomputes G per head)."""
+    from repro_torch.kernels import ssd_chunk_bwd, ssd_chunk_bwd_plain
+    from repro_torch.kernels.ssd_chunk_bwd import (ATOL, bwd_err,
+                                                   ssd_chunk_bwd_scale)
+    args = _ssd_grad_inputs(shape, dtype, cuda_device, 5, strong=True)
+    got = ssd_chunk_bwd(*args)
+    assert all(torch.equal(u, v) for u, v in zip(got, ssd_chunk_bwd(*args)))
+    assert bwd_err(got, ssd_chunk_bwd_plain(*args),
+                   ssd_chunk_bwd_scale(*args)) <= ATOL
+
+
+@pytest.mark.cuda
+def test_mamba2_smoke_train_step_on_card(cuda_device):
+    """Two train steps of the Mamba2 smoke config on the card: finite
+    loss, one ``ssd_chunk``, one recomputed and one backward launch a
+    layer a step, and the same loss as the step on the CPU to bf16
+    rounding."""
+    import repro_torch.configs as C
+    from repro_torch.kernels import ssd_chunk_bwd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import optimizers as opt
+    cfg = C.get_smoke("mamba2-1.3b")
+    batch = api.make_batch(cfg, torch.Generator().manual_seed(1), 2, 64)
+    losses = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        params = api.init(cfg, torch.Generator().manual_seed(0)).to(dev)
+        o = opt.adamw(1e-3)
+        state = o.init(dict(params.named_parameters()))
+        step = make_train_step(cfg, o, device=dev)
+        f0, b0 = ssd_chunk.launches, ssd_chunk_bwd.launches
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+        losses[dev.type] = float(m["loss"])
+        if dev.type == "cuda":
+            assert ssd_chunk.launches - f0 == 2 * 2 * cfg.n_layers
+            assert ssd_chunk_bwd.launches - b0 == 2 * cfg.n_layers
+    assert np.isfinite(losses["cuda"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2
 
 
 @pytest.mark.cuda

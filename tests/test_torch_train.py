@@ -347,3 +347,23 @@ def test_dp_or_tp_raise_in_the_launcher():
     with pytest.raises(NotImplementedError, match="sharding"):
         train.main(["--arch", "olmo-1b", "--smoke", "--dp", "2",
                     "--device", "cpu"])
+
+
+@pytest.mark.parametrize("seq", ["128", "300", "0"])
+def test_launcher_refuses_a_seq_off_the_ssd_chunk(seq):
+    """Full-width Mamba2 splits its sequence into chunks of 256: a --seq
+    that is no positive multiple of it raises before any model is built."""
+    from repro_torch.launch import train
+    with pytest.raises(ValueError, match="chunks of 256"):
+        train.main(["--arch", "mamba2-1.3b", "--seq", seq, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch,smoke,want", [
+    ("olmo-1b", False, 128), ("mamba2-1.3b", False, 256),
+    ("mamba2-1.3b", True, 128), ("jamba-1.5-large-398b", False, 256)])
+def test_launcher_default_seq_fits_the_chunk(arch, smoke, want):
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.launch import train
+    cfg = get_smoke(arch) if smoke else get(arch)
+    assert train.train_seq(cfg, None) == want
+    assert train.train_seq(cfg, 512) == 512
