@@ -40,7 +40,7 @@ test can rehearse them at a tiny size with the kernels' plain versions:
   7. dse         -- the design-space exploration layer on Gamma at the main
                     phase's size: the 16-point FiberCache axis and a
                     256-point axis on the analytic backend (points/s, every
-                    point analytic), four capacities on the hand kernels
+                    point analytic), two capacities on the hand kernels
                     (each point equal to its own ``simulate`` call, whose
                     launches are held to the plain versions; ``search``
                     launches counted; analytic/vector ratios), then at
@@ -227,7 +227,8 @@ from repro_torch.kernels import (ssd_chunk_bwd,  # noqa: E402
                                  ssd_chunk_bwd_plain)
 # kernel vs plain ssd_chunk backward (the reasons are the constant's)
 from repro_torch.kernels.ssd_chunk_bwd import (  # noqa: E402
-    ATOL as SSD_BWD_ATOL, bwd_err as ssd_bwd_err, ssd_chunk_bwd_scale)
+    ATOL as SSD_BWD_ATOL, LAUNCHES as SSD_BWD_LAUNCHES,
+    bwd_err as ssd_bwd_err, ssd_chunk_bwd_launch_ms, ssd_chunk_bwd_scale)
 from repro_torch.kernels.backends import (CudaKernels,  # noqa: E402
                                           TorchKernels)
 # kernel vs plain flash attention, by dtype (the reasons are the constant's)
@@ -308,7 +309,12 @@ MAIN_CONFIGS = (("gamma", 8192, 100_000), ("extensor", 4096, 40_000),
 #: Table 4 range), its FiberCache capacities (MB) swept on the vector path,
 #: and the smaller Gamma that the engine's behaviour is checked on
 DSE_SIZE = (8192, 100_000)
-DSE_VECTOR_CAPS = (0.002, 0.05, 1.0, 6.0)
+#: the FiberCache axis's two ends on the kernels (each point about 50 s of
+#: host time with its check; four took the script within 44 s of its
+#: 1,200 s limit when the host-bound graph phase ran slow)
+DSE_VECTOR_CAPS = (0.002, 6.0)
+#: the engine's checks at DSE_ENGINE_SIZE (a crash at the fourth point)
+DSE_ENGINE_CAPS = (0.002, 0.05, 1.0, 6.0)
 DSE_ENGINE_SIZE = (2048, 20_000)
 
 #: every kernel the script counts, in the result line's order
@@ -1287,7 +1293,7 @@ def _objectives(results) -> List[Tuple]:
 
 def _dse_engine_checks(device, size, seed: int, where) -> None:
     """The sweep engine's behaviour on ``device``'s vector path at
-    ``size``, over the capacities ``DSE_VECTOR_CAPS``: the thread
+    ``size``, over the capacities ``DSE_ENGINE_CAPS``: the thread
     executor (4 workers) equals the serial sweep; a crash injected at
     point 3 under a checkpoint, then a resumed sweep, equals it bit for
     bit; a seam fault injected into ``intersect_keys`` is recorded as a
@@ -1298,7 +1304,7 @@ def _dse_engine_checks(device, size, seed: int, where) -> None:
     the analytic backend equals its serial sweep."""
     device = torch.device(device)
     inputs, shapes = dse_sweep.sparse_workload(*size, seed)
-    pts = dse_sweep.fibercache_space(DSE_VECTOR_CAPS).grid()
+    pts = dse_sweep.fibercache_space(DSE_ENGINE_CAPS).grid()
 
     def engine(**kw):
         return SweepEngine(inputs, shapes, backend="vector", device=device,
@@ -1697,7 +1703,7 @@ PATH_KERNELS = {
                   lambda dt: BWD_ATOL[dt])),
     "ssd_chunk_bwd": PathKernel(
         SSD_BWD_MODULE, ssd_chunk_bwd_plain,
-        ("cum_kernel", "ssd_bwd_main", "dc_sum_kernel", "da_kernel"),
+        SSD_BWD_LAUNCHES,
         _bwd_hold(ssd_bwd_err, ssd_chunk_bwd_scale,
                   lambda dt: SSD_BWD_ATOL)),
 }
@@ -2880,8 +2886,10 @@ def phase_ssd_grad(device, cases=None, reps: int = 10, seed: int = 12,
     less one bf16 rounding of a bf16 gradient, over the summed magnitude
     of its terms), in bf16 and fp32, at each of ``ssd_grad_cases``; each
     timed beside ``ssd_bwd_bound`` and the plain version's time, with its
-    TFLOP/s.  At every case each of ``SSD_BWD_FAULTS`` must fail that
-    hold, and a second call on the same inputs must give the same bits.
+    TFLOP/s and the device ms of each of its launches in one call (CUDA
+    events around each).  At every case each of ``SSD_BWD_FAULTS`` must
+    fail that hold, and a second call on the same inputs must give the
+    same bits.
     All readings are logged before the rules are enforced.  Returns the
     bf16 record of the first case (the result line's), the fp32 one under
     ``fp32`` and every case under ``cases``."""
@@ -2924,6 +2932,10 @@ def phase_ssd_grad(device, cases=None, reps: int = 10, seed: int = 12,
                                       device, reps),
                  "bound_ms": bound, "bound_by": by, "bound_route": route,
                  "library_ms": None}
+            # device ms of each launch in one call, from CUDA events around
+            # each (none on the CPU)
+            r["launch_ms"] = ssd_chunk_bwd_launch_ms(*args) \
+                if device.type == "cuda" else {}
             tflops = sum(ssd_bwd_flops(shape)) / r["ms"] * 1e-9
             log(f"ssd_grad {shape} strong={strong} {dtype} on "
                 f"{card or device}: bwd_err {err:.4g} (limit "
@@ -2935,7 +2947,10 @@ def phase_ssd_grad(device, cases=None, reps: int = 10, seed: int = 12,
                 + f"; two calls bit-equal: {same}; {r['ms']:.4f} ms, "
                 f"{tflops:.1f} TFLOP/s, {bound / r['ms']:.1%} of the bound "
                 f"{bound:.4f} ms by {by} on {route} (plain "
-                f"{r['plain_ms']:.4f})")
+                f"{r['plain_ms']:.4f}); device ms by launch "
+                + (", ".join(f"{n} {v:.4f}"
+                             for n, v in r["launch_ms"].items())
+                   or "not measured"))
             recs.append(r)
             del args
             if device.type == "cuda":

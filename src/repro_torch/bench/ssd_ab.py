@@ -6,12 +6,12 @@
 example, unpacked with ``git archive`` under the ignored ``build/``).
 ``NAME`` is ``ssd_chunk`` (the default), ``flash_attention``,
 ``block_sparse_matmul``, ``search``, ``merge_path``,
-``multi_merge_ranks`` or ``flash_attention_bwd``.  The kernel's source
-under ``src/repro_torch/kernels/csrc/`` in ``DIR`` and in this tree are
-compiled with the flags of ``kernels/build.py`` and launched through the
-same C interface, each build in a process of its own that imports the
-package of its own checkout, in the order base, this, this, base, so
-both come from one card.  The cases:
+``multi_merge_ranks``, ``flash_attention_bwd`` or ``ssd_chunk_bwd``.
+The kernel's source under ``src/repro_torch/kernels/csrc/`` in ``DIR``
+and in this tree are compiled with the flags of ``kernels/build.py`` and
+launched through the same C interface, each build in a process of its
+own that imports the package of its own checkout, in the order base,
+this, this, base, so both come from one card.  The cases:
 
   * ``ssd_chunk``: the Mamba2-1.3B prefill shape (B 4, nc 8, l 256, H 64,
     P 64, N 128) in bf16 and fp32, and the reduced Jamba's (H 128) in
@@ -36,7 +36,15 @@ both come from one card.  The cases:
     train shape, Qwen2-7B's GQA shape, Whisper's cross-attention) in bf16
     and fp32, o and lse from the plain forward, each build called through
     its own checkout's wrapper (which allocates that build's scratch) and
-    held to ``flash_attention_bwd_plain`` by ``bwd_err`` within ``ATOL``.
+    held to ``flash_attention_bwd_plain`` by ``bwd_err`` within ``ATOL``;
+  * ``ssd_chunk_bwd``: the first two shapes of
+    ``chip_smoke.ssd_grad_cases`` (Mamba2-1.3B's train shape, 8 x 2048:
+    (8, 8, 256, 64, 64, 128), and the reduced Jamba's, (4, 8, 256, 128,
+    64, 128)) in bf16 and fp32, dy standard normal fp32, each build called
+    through its own checkout's wrapper and held to
+    ``ssd_chunk_bwd_plain`` by its ``bwd_err`` within ``ATOL``; each case
+    also reports the device ms of each of the build's launches in one
+    call, by kernel name, from ``torch.profiler``.
 
 Each process holds its build to the plain version first, then times it
 with CUDA events (mean of ``--reps`` launches after one warm-up).  The
@@ -55,6 +63,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +113,8 @@ FLASH_CASES = {
 BWD_CASES = (((8, 16, 16, 2048, 2048, 128), True),
              ((4, 28, 4, 2048, 2048, 128), True),
              ((4, 12, 12, 448, 1500, 64), False))
+#: (B, nc, l, H, P, N): chip_smoke.ssd_grad_cases()'s first two shapes
+SSD_BWD_CASES = ((8, 8, 256, 64, 64, 128), (4, 8, 256, 128, 64, 128))
 #: (M, K, N, bm, bk, tile density): chip_smoke.BSMM_CARD
 BSMM_CASE = (8192, 8192, 1024, 128, 128, 0.3)
 BSMM_RTOL = 1e-4
@@ -241,6 +252,62 @@ def bwd_cases(lib, gen):
             yield f"{shape} causal={causal} {dtype}", run, ok
 
 
+def ssd_bwd_cases(lib, gen):
+    """x, a, b, c, dy at each of SSD_BWD_CASES in bf16 and fp32, as
+    chip_smoke.py's phase ssd_grad makes them (a = -0.1 |normal|); the
+    build in ``lib`` is called through this checkout's ``ssd_chunk_bwd``
+    wrapper (which allocates that build's scratch)."""
+    import importlib
+    mod = importlib.import_module("repro_torch.kernels.ssd_chunk_bwd")
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    build._LIBS["ssd_chunk_bwd"] = lib
+    for shape in SSD_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            B, nc, l, H, P, N = shape
+
+            def randn(*s):
+                return torch.randn(s, generator=gen, device="cuda")
+
+            x = randn(B, nc, l, H, P).to(dtype)
+            a = -randn(B, H, nc, l).abs() * 0.1
+            b, c = randn(B, nc, l, N).to(dtype), randn(B, nc, l, N).to(dtype)
+            dy = randn(B, nc, l, H, P)
+            args = (x, a, b, c, dy)
+            want = mod.ssd_chunk_bwd_plain(*args)
+            scale = mod.ssd_chunk_bwd_scale(*args)
+
+            def run(args=args):
+                return mod.ssd_chunk_bwd(*args)
+
+            def ok(got, want=want, scale=scale):
+                err = mod.bwd_err(got, want, scale)
+                return err, err <= mod.ATOL
+
+            yield f"{shape} {dtype}", run, ok
+
+
+def launch_ms(run) -> dict:
+    """Device ms of each kernel launched by one ``run()``, by name, from
+    ``torch.profiler``."""
+    run()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            # the function's name: the word before its template or
+            # argument list
+            found = re.search(r"(\w+)(?:<[^()]*>)?\(", ev.name)
+            name = found.group(1) if found else ev.name
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out
+
+
 def bsmm_cases(lib, gen):
     fn = lib.repro_block_sparse_matmul
     fn.argtypes, fn.restype = list(BSMM_ARGS), ctypes.c_int
@@ -360,7 +427,7 @@ KERNELS = {"ssd_chunk": ssd_cases, "flash_attention": flash_cases,
            "block_sparse_matmul": bsmm_cases,
            "search": search_cases, "merge_path": merge_cases,
            "multi_merge_ranks": multi_cases,
-           "flash_attention_bwd": bwd_cases}
+           "flash_attention_bwd": bwd_cases, "ssd_chunk_bwd": ssd_bwd_cases}
 
 
 def time_ms(run, reps: int, graph: bool = False) -> float:
@@ -422,6 +489,10 @@ def measure(kernel: str, lib_path: Path, reps: int) -> dict:
                       if good else None}
         if wrapper:
             out[label]["host_us"] = host_us(wrapper[0])
+        if kernel == "ssd_chunk_bwd" and good:
+            out[label]["launch_ms"] = launch_ms(run)
+        del got
+        torch.cuda.empty_cache()
     return out
 
 
@@ -464,6 +535,9 @@ def main(argv=None) -> int:
             ms = "not timed" if r["ms"] is None else f"{r['ms']:.4f} ms"
             host = f", wrapper {r['host_us']:.3f} us a call on the host" \
                 if "host_us" in r else ""
+            if "launch_ms" in r:
+                host += ", device ms by launch " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in r["launch_ms"].items())
             print(f"{tag} {args.kernel} {label}: {ms}{host}, max abs err "
                   f"{r['max_abs_err']:.3g}, within its limit: {r['ok']}",
                   flush=True)

@@ -14,7 +14,7 @@ db = dG^T c; M = dW o W, dcum = rowsum(M) - colsum(M), da = the reverse
 cumsum of dcum.  dx, db and dc come back in their inputs' dtype, da in
 fp32.
 
-``ssd_chunk_bwd`` launches the kernel (fp32-accurate TF32 products, no
+``ssd_chunk_bwd`` launches the kernel (wgmma products fed by TMA, no
 atomics, so two calls give the same bits) for tensors on a CUDA device,
 and takes the plain version, ``ssd_chunk_bwd_plain``, only for tensors
 on the CPU.  The kernel is held to the plain version by ``bwd_err``:
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -34,28 +34,37 @@ from . import build
 from .ssd_chunk import _DTYPES, MAX_CHUNK, _check
 
 #: repro_ssd_chunk_bwd(x, a, b, c, dy, dx, da, db, dc, scratch, B, nc, l,
-#: H, P, N, dtype, stream)
+#: H, N, hg, dtype, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + \
     (ctypes.c_void_p,)
-#: the kernel's head dim: one 64-column tile of X and dY a head
+#: the kernel's launches in a call, in order (its entry functions' names)
+LAUNCHES = ("cum_kernel", "g_kernel", "main_kernel", "dbdc_kernel",
+            "da_kernel")
+#: the kernel's head dim: one 64-column tile of X and dY a head (a
+#: smaller one is padded with zeros)
 MAX_HEAD_DIM = 64
-#: the kernel's row tiles: its scratch holds per-tile shares of dC and of
-#: M's row sums
+#: the kernel's tiles of 64 rows i and 64 columns j: its scratch holds G
+#: and dG's partials a tile, and per-tile shares of M's row sums
 TILE = 64
+#: the main pass's work items to aim for (``head_group``): about four a
+#: streaming multiprocessor of an H100
+ITEMS = 512
 #: kernel vs plain version: ``bwd_err``'s measure, each gradient
 #: element's error over the summed magnitude of its terms, after one
 #: bf16 rounding of a bf16 gradient is taken out (``BF16_ROUNDING``).
-#: What is left is fp32 arithmetic in both dtypes (dy, W and dG are fp32,
-#: and every product of the kernel is fp32-accurate on the TF32 tensor
-#: cores): products within about 2^-21 of a term (3xTF32, or 2xTF32 with
-#: an operand exact in TF32); exp within 2 + floor(1.16 |e|) ulp
-#: (``__expf`` of e <= 0, at most a few 1e-6 where L is not negligible);
-#: the tensor cores' truncating accumulation, up to an ulp a k8 step into
-#: a fresh accumulator of at most 8 steps (1e-6); fp32 sums of a few
-#: hundred terms in another order than the plain version's (about
-#: sqrt(n) 2^-24, 1e-6).  The CPU emulation of the kernel's arithmetic
-#: (tests/test_torch_ssd_grad.py) reads at most 4e-7; with dy rounded
-#: once to TF32 instead of split it reads 4.5e-5 to 2.2e-4, over the limit.
+#: What is left is fp32 arithmetic in both dtypes (dy, W and dG are fp32):
+#: dX, G, dB and dC within about 2^-21 of a term (3xTF32, or 2xTF32 with
+#: an operand exact in TF32); dW = dy x^T within about 2^-16 of a term (dy
+#: as two bf16 parts, and in fp32 x too), whose errors average out over
+#: dG's and M's sums; exp within 2 + floor(1.16 |e|) ulp (``__expf`` of e
+#: <= 0, at most a few 1e-6 where L is not negligible); the tensor cores'
+#: truncating accumulation, up to an ulp a step into a fresh accumulator
+#: of at most 12 steps (1e-6); fp32 sums of a few hundred terms in another
+#: order than the plain version's (about sqrt(n) 2^-24, 1e-6).  The CPU
+#: emulation of the kernel's arithmetic (tests/test_torch_ssd_grad.py)
+#: reads at most 2e-6; with dy rounded once to TF32 instead of split it
+#: reads 3e-5 to 2.3e-4, and with one bf16 part of dy in dW 1.6e-4 to
+#: 6.2e-4, over the limit.
 ATOL = 1e-5
 #: two roundings to bf16 (8 significant bits, round to nearest) of fp32
 #: values that differ by d are at most d + 2^-8 (1 + 2^-7) (|u| + |v|)
@@ -65,6 +74,16 @@ BF16_ROUNDING = 2.0 ** -7 * (1 + 2.0 ** -7)
 #: scale, so that a product that underflows in one version and not the
 #: other (a term of a few 1e-38) is no error
 SCALE_FLOOR = 1e-6
+
+
+def head_group(B: int, nc: int, l: int, H: int) -> int:
+    """Heads a CTA of the kernel's main pass walks: the heads split into
+    as few groups as give about ITEMS (cell, column tile, group) items,
+    so that both train shapes fill the card; dG's head sum runs over each
+    group's heads in order, then over the groups in order."""
+    items = B * nc * -(-l // TILE)
+    groups = min(H, max(1, -(-ITEMS // max(items, 1))))
+    return -(-H // groups) if H else 1
 
 
 def _check_bwd(x, a, b, c, dy) -> None:
@@ -182,12 +201,58 @@ def bwd_err(got, want, scale) -> float:
     return worst
 
 
+def _launch(x, a, b, c, dy, ms=None):
+    """One call of the kernel's five launches on x's CUDA device (counted
+    once); ``ms``: None, or a ctypes array of five floats that the timed
+    entry fills with each launch's device ms (``LAUNCHES``' order)."""
+    B, nc, l, H, P = x.shape
+    N = b.shape[-1]
+    if l > MAX_CHUNK:
+        raise ValueError(f"ssd_chunk_bwd: chunk length {l} > {MAX_CHUNK}")
+    if P > MAX_HEAD_DIM:
+        raise ValueError(f"ssd_chunk_bwd: head dim {P} > {MAX_HEAD_DIM}")
+    if H * P == 0:
+        x, dy = x.new_zeros(B, nc, l, H, MAX_HEAD_DIM), \
+            dy.new_zeros(B, nc, l, H, MAX_HEAD_DIM)
+    elif P < MAX_HEAD_DIM:                 # the kernel's tiles: zeros past P
+        pad = (0, MAX_HEAD_DIM - P)
+        x, dy = torch.nn.functional.pad(x, pad), \
+            torch.nn.functional.pad(dy, pad)
+    # TMA reads x and dy from 16-byte addresses
+    x, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dy))
+    dx = torch.empty_like(x)
+    da = torch.empty_like(a)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    if B * nc * l == 0:
+        return dx[..., :P], da, db, dc
+    hg = head_group(B, nc, l, H)
+    n_rt = -(-l // TILE)
+    tiles = n_rt * (n_rt + 1) // 2
+    scratch = torch.empty(
+        B * H * nc * n_rt * TILE + (1 + -(-H // hg)) * B * nc * tiles
+        * TILE * TILE + n_rt * 2 * B * H * nc * l,
+        dtype=torch.float32, device=x.device)
+    args = [x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), scratch.data_ptr(), B, nc, l, H, N, hg,
+            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream]
+    if ms is None:
+        fn = build.function("ssd_chunk_bwd", "repro_ssd_chunk_bwd", _ARGTYPES)
+    else:
+        fn = build.function("ssd_chunk_bwd", "repro_ssd_chunk_bwd_timed",
+                            _ARGTYPES + (ctypes.c_void_p,))
+        args.append(ctypes.addressof(ms))
+    _COUNTER.launches += 1
+    build.check("ssd_chunk_bwd", fn(*args))
+    return (dx if P == MAX_HEAD_DIM else dx[..., :P].contiguous()), da, db, dc
+
+
 def ssd_chunk_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   c: torch.Tensor, dy: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """``ssd_chunk_bwd_plain``'s function; on a CUDA device, one call of
-    the hand-written kernel's four launches (counted once, on
+    the hand-written kernel's five launches (counted once, on
     ``ssd_chunk_bwd.launches``).  Outside the kernel's domain (chunk
     above MAX_CHUNK, head dim above MAX_HEAD_DIM, devices) it raises."""
     _check_bwd(x, a, b, c, dy)
@@ -195,30 +260,23 @@ def ssd_chunk_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return ssd_chunk_bwd_plain(x, a, b, c, dy)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_bwd: no kernel for device {x.device}")
-    B, nc, l, H, P = x.shape
-    N = b.shape[-1]
-    if l > MAX_CHUNK:
-        raise ValueError(f"ssd_chunk_bwd: chunk length {l} > {MAX_CHUNK}")
-    if P > MAX_HEAD_DIM:
-        raise ValueError(f"ssd_chunk_bwd: head dim {P} > {MAX_HEAD_DIM}")
-    dx = torch.zeros_like(x) if H * P == 0 else torch.empty_like(x)
-    da = torch.empty_like(a)
-    db, dc = torch.empty_like(b), torch.empty_like(c)
-    if B * nc * l == 0:
-        return dx, da, db, dc
-    n_rt = -(-l // TILE)
-    scratch = torch.empty(B * H * nc * n_rt * TILE
-                          + n_rt * (B * H * nc * l + B * nc * l * N),
-                          dtype=torch.float32, device=x.device)
-    fn = build.function("ssd_chunk_bwd", "repro_ssd_chunk_bwd", _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _COUNTER.launches += 1
-    build.check("ssd_chunk_bwd", fn(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        dy.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(),
-        dc.data_ptr(), scratch.data_ptr(), B, nc, l, H, P, N,
-        _DTYPES[x.dtype], stream))
-    return dx, da, db, dc
+    return _launch(x, a, b, c, dy)
+
+
+def ssd_chunk_bwd_launch_ms(x: torch.Tensor, a: torch.Tensor,
+                            b: torch.Tensor, c: torch.Tensor,
+                            dy: torch.Tensor) -> Dict[str, float]:
+    """The device ms of each of the kernel's launches (``LAUNCHES``) in
+    one call on these inputs, from CUDA events recorded around each on
+    the stream (the call counts as a launch).  For measurement; CUDA
+    tensors only."""
+    _check_bwd(x, a, b, c, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd_launch_ms: no kernel for device "
+                         f"{x.device}")
+    ms = (ctypes.c_float * len(LAUNCHES))()
+    _launch(x, a, b, c, dy, ms)
+    return dict(zip(LAUNCHES, map(float, ms)))
 
 
 ssd_chunk_bwd.launches = 0

@@ -95,7 +95,8 @@ def test_synth_matrix_is_stable_across_hash_seeds():
     digests = set()
     for hash_seed in ("1", "2"):
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                   PYTHONHASHSEED=hash_seed)
+                   PYTHONHASHSEED=hash_seed, OMP_NUM_THREADS="2",
+                   MKL_NUM_THREADS="2")
         out = subprocess.run([sys.executable, "-c", _DIGEST], env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr

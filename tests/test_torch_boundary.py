@@ -16,6 +16,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+#: the thread pools of a child process: torch's default (one thread a
+#: core) in each of several children beside the test workers oversubscribes
+#: the host's cores, and a run of seconds alone took minutes
+CHILD_THREADS = {"OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
 
 
 def _imports(path: Path):
@@ -135,7 +139,7 @@ print("ok")
 
 
 def test_simulation_runs_where_jax_and_reference_cannot_import():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **CHILD_THREADS)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -173,7 +177,7 @@ def test_entry_points_run_where_jax_and_reference_cannot_import(argv,
     fails."""
     if argv[0] == "repro_torch.launch.train":
         argv = argv + ["--ckpt-dir", str(tmp_path / "ckpt")]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **CHILD_THREADS)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_MAIN, *argv],
                          env=env, capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
@@ -682,6 +686,7 @@ def test_chip_smoke_needs_a_card(chip_smoke, monkeypatch, capsys):
 def test_chip_smoke_alone_fails(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(CHILD_THREADS)
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True,
                          timeout=300)
@@ -1061,16 +1066,16 @@ def test_ssd_bwd_bound_at_the_train_shape(chip_smoke):
 
 
 def test_ssd_train_step_profile_shares(chip_smoke, capsys):
-    """``log_profile`` for an SSM step: the SSD backward's four launches
-    by name (its ``PathKernel.entries``, each an entry of its source) and
-    the forward kernel."""
+    """``log_profile`` for an SSM step: the SSD backward's launches by
+    name (its ``PathKernel.entries``, each an entry of its source) and the
+    forward kernel."""
     for name, k in chip_smoke.PATH_KERNELS.items():
         src = (ROOT / chip_smoke.KERNEL_INFO[name][0]).read_text()
         assert all(re.search(rf"\b{e}\(", src) for e in k.entries), name
     prof = {"wall_s": 1.0, "busy_s": 0.9, "first_last_s": 0.95,
-            "by_name": {"(anonymous namespace)::ssd_bwd_main<true>": 40e3,
+            "by_name": {"(anonymous namespace)::wg::main_kernel<true>": 40e3,
                         "(anonymous namespace)::cum_kernel(float)": 1e3,
-                        "(anonymous namespace)::dc_sum_kernel<float>": 2e3,
+                        "(anonymous namespace)::dbdc_kernel<float>": 2e3,
                         "(anonymous namespace)::da_kernel(float)": 7e3,
                         "tc::ssd_chunk_tc(bf16)": 20e3,
                         "at::native::cumsum_kernel": 30e3,

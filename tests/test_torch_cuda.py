@@ -1110,9 +1110,12 @@ def _ssd_grad_inputs(shape, dtype, device, seed, strong=False):
             randn(B, nc, l, N).to(dtype), randn(B, nc, l, H, P))
 
 
-#: the SSD backward's card cases: the production chunk and, off its
-#: 64-row tiles, the ragged case (N and P off 16)
-SSD_GRAD_CASES = [(1, 2, 256, 8, 64, 128), (2, 1, 100, 3, 24, 40)]
+#: the SSD backward's card cases: the production chunk; off its 64-row
+#: tiles, the ragged case (N and P off 16); the longest chunk (l 512: dG's
+#: tiles in scratch); five heads, which split into head groups of 2, 2
+#: and 1 (``ssd_chunk_bwd.head_group``)
+SSD_GRAD_CASES = [(1, 2, 256, 8, 64, 128), (2, 1, 100, 3, 24, 40),
+                  (1, 2, 512, 4, 64, 32), (4, 8, 256, 5, 64, 128)]
 
 
 @pytest.mark.cuda
@@ -1141,13 +1144,14 @@ def test_ssd_chunk_grad_on_card_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 512, 2, 32, 16),
-                                   (1, 2, 256, 8, 64, 128)], ids=str)
+@pytest.mark.parametrize("shape", [(1, 1, 512, 2, 32, 16)] + SSD_GRAD_CASES,
+                         ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_ssd_chunk_bwd_bit_equal_on_card(cuda_device, shape, dtype):
     """No atomics: two calls on the same inputs give the same bits, under
-    strong decay and at the longest chunk (l 512 recomputes G per head)."""
+    strong decay, at the longest chunk (l 512: dG's tiles in scratch) and
+    with head groups of unequal size."""
     from repro_torch.kernels import ssd_chunk_bwd, ssd_chunk_bwd_plain
     from repro_torch.kernels.ssd_chunk_bwd import (ATOL, bwd_err,
                                                    ssd_chunk_bwd_scale)
@@ -1156,6 +1160,28 @@ def test_ssd_chunk_bwd_bit_equal_on_card(cuda_device, shape, dtype):
     assert all(torch.equal(u, v) for u, v in zip(got, ssd_chunk_bwd(*args)))
     assert bwd_err(got, ssd_chunk_bwd_plain(*args),
                    ssd_chunk_bwd_scale(*args)) <= ATOL
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_bwd_launch_split_on_card(cuda_device):
+    """The timed entry gives the device ms of each of the five launches,
+    positive and summing to no more than the call's wall time, and counts
+    as one launch."""
+    import time
+    from repro_torch.kernels import ssd_chunk_bwd
+    from repro_torch.kernels.ssd_chunk_bwd import (LAUNCHES,
+                                                   ssd_chunk_bwd_launch_ms)
+    args = _ssd_grad_inputs((2, 4, 256, 8, 64, 128), torch.bfloat16,
+                            cuda_device, 6)
+    ssd_chunk_bwd(*args)                  # built and warm
+    torch.cuda.synchronize()
+    b0 = ssd_chunk_bwd.launches
+    t0 = time.perf_counter()
+    ms = ssd_chunk_bwd_launch_ms(*args)
+    wall = (time.perf_counter() - t0) * 1e3
+    assert ssd_chunk_bwd.launches == b0 + 1
+    assert tuple(ms) == LAUNCHES and all(v > 0 for v in ms.values())
+    assert sum(ms.values()) <= wall
 
 
 @pytest.mark.cuda

@@ -13,14 +13,16 @@ difference of cumulative sums rounded to fp32 (as the kernels do), which
 moves L by ulps of |cum|; under strong decay (|cum| in the hundreds) that
 is a few 1e-5 of a term, hence REF_TOL.
 
-The kernel (``csrc/ssd_chunk_bwd.cu``) is emulated in torch: each
-product on the TF32 tensor cores with hi/lo splits (3xTF32 where both
-operands are fp32, 2 where one is bf16, exact in TF32), ``__expf`` within
-its error bound, sums over row tiles, heads and column tiles in the
-kernel's order, each row tile's dX and dB products in a fresh
-accumulator, da's reverse cumsum in fp64.  The emulation holds ATOL at
-the kernel's tolerance; dropping dY's lo part (one TF32 rounding of dY)
-misses it, and so does each planted fault: one head left out of dG (and
+The kernel (``csrc/ssd_chunk_bwd.cu``) is emulated in torch: dW = dY X^T
+on the bf16 tensor cores with dY split into two bf16 parts (and X, in
+fp32, too), the other products on the TF32 tensor cores with hi/lo
+splits (3xTF32 where both operands are fp32, 2 where one is bf16, exact
+in TF32), ``__expf`` within its error bound, sums over row tiles, heads
+(in head groups, ``head_group``) and column tiles in the kernel's order,
+each row tile's dX, dB and dC products in a fresh accumulator, da's
+reverse cumsum in fp64.  The emulation holds ATOL at the kernel's
+tolerance; one TF32 rounding of dY misses it, and so does dY as one bf16
+part in dW, and so does each planted fault: one head left out of dG (and
 so of dB and dC), the last row tile left out of the column sums behind
 da, the last row tile left out of dX.
 """
@@ -36,9 +38,12 @@ from repro.kernels.ref import ssd_chunk_ref
 from repro_torch.kernels import (SsdChunk, ssd_chunk, ssd_chunk_bwd,
                                  ssd_chunk_bwd_plain, ssd_chunk_plain)
 from repro_torch.kernels.ssd_chunk_bwd import (ATOL, BF16_ROUNDING,
-                                               bwd_err, ssd_chunk_bwd_scale)
+                                               bwd_err, head_group,
+                                               ssd_chunk_bwd_launch_ms,
+                                               ssd_chunk_bwd_scale)
 from test_torch_bsmm_numerics import split
 from test_torch_ssd_numerics import _decay as decay_expf
+from test_torch_ssd_numerics import _split as _bf16_split
 
 #: the reference's SSD_SHAPES (tests/test_kernels.py), then one off the
 #: kernel's 64-row tiles with N and P off 16 (the card tests' ragged case)
@@ -161,6 +166,14 @@ def test_bwd_wrapper_on_cpu_takes_plain_and_checks_inputs():
         ssd_chunk_bwd(*(t.to("meta") for t in (x, a, b, c, dy)))
 
 
+def test_launch_split_needs_a_card():
+    """The per-launch timing is a measurement of the kernel: on CPU
+    tensors there is none to time, and it says so."""
+    x, a, b, c, dy = _inputs(SHAPES[0])
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        ssd_chunk_bwd_launch_ms(x, a, b, c, dy)
+
+
 # ---------------------------------------------------------------------- #
 # the error measure
 # ---------------------------------------------------------------------- #
@@ -213,20 +226,39 @@ def _tf32_mm(u, w, u_lo, w_lo):
     return out
 
 
-def emulate(x, a, b, c, dy, fault=None, dy_lo=True, seed=0):
+def _bf16_parts_mm(u, w, parts, w_parts=1):
+    """u @ w on the bf16 tensor cores with u (fp32) split into ``parts``
+    bf16 terms and w into ``w_parts`` (1: w is bf16, exact): each term's
+    product exact in fp32, the products of combined order below two
+    parts kept (u_lo w_hi, u_hi w_lo), summed small terms first, as the
+    kernel takes dW = dY X^T."""
+    us, ws = _bf16_split(u, parts), _bf16_split(w, w_parts)
+    terms = [(a, b) for a in range(parts) for b in range(w_parts)
+             if a + b < max(parts, w_parts)]
+    terms.sort(key=lambda ab: (-(ab[0] + ab[1]), -ab[0]))
+    out = us[terms[0][0]] @ ws[terms[0][1]]
+    for a, b in terms[1:]:
+        out = out + us[a] @ ws[b]
+    return out
+
+
+def emulate(x, a, b, c, dy, fault=None, dy_lo=True, dy_parts=2, seed=0):
     """(dx, da, db, dc) as ``csrc/ssd_chunk_bwd.cu`` computes them: G =
     C B^T (one pass in bf16, 3xTF32 in fp32); L as ``__expf`` takes it
     (``test_torch_ssd_numerics._decay``); per head and row tile it, dW =
-    dY X^T (dY split, X split in fp32), W = G L, M = dW W; dG summed over
-    the heads in order, M's column sums over 16-row groups then row tiles
-    in order, its row sums over two 32-column halves a column tile; dX
-    over row tiles in order, each tile's W^T dY fresh (3xTF32); dB over
-    row tiles fresh, dC over column tiles in order (dG split, B and C
-    split in fp32); da the fp64 reverse cumsum of the column tiles'
-    shares.  ``fault``: ``"drop_head"`` leaves the last head out of dG,
-    ``"drop_colsum_tile"`` the last row tile out of the column sums,
-    ``"drop_dx_tile"`` the last row tile out of dX; ``dy_lo`` False drops
-    dY's lo part from every product (one TF32 rounding of dY)."""
+    dY X^T with dY split into ``dy_parts`` bf16 terms (bf16: X exact;
+    fp32: X split into two bf16 terms, three products), W = G L, M = dW W;
+    dG summed over the heads of each head group in order, then over the
+    groups in order (``head_group``); M's column sums over 16-row groups
+    then row tiles in order, its row sums a 32-column half of a column
+    tile each, added over column tiles and halves in order; dX as the two
+    consumers' sums over their 32 rows i of each row tile (3xTF32, a
+    tile's product fresh), added; dB over row tiles and dC over column
+    tiles, a tile's product fresh (dG split, B and C split in fp32); da
+    the fp64 reverse cumsum.  ``fault``: ``"drop_head"`` leaves the last
+    head out of dG, ``"drop_colsum_tile"`` the last row tile out of the
+    column sums, ``"drop_dx_tile"`` the last row tile out of dX;
+    ``dy_lo`` False rounds dY once to TF32 in every product."""
     B, nc, l, H, P = x.shape
     lo = x.dtype == torch.float32
     n_rt = -(-l // TILE)
@@ -238,32 +270,44 @@ def emulate(x, a, b, c, dy, fault=None, dy_lo=True, seed=0):
     if not dy_lo:
         dyh = split(dyh)[0]
     xh = xf.permute(0, 3, 1, 2, 4)
-    dW = _tf32_mm(dyh, xh.transpose(-1, -2), dy_lo, lo)        # [B,H,nc,l,s]
+    if not dy_lo:
+        dW = _tf32_mm(dyh, xh.transpose(-1, -2), False, lo)    # [B,H,nc,l,s]
+    else:
+        dW = _bf16_parts_mm(dyh, xh.transpose(-1, -2), dy_parts,
+                            2 if lo else 1)
     M = dW * W
     dG = torch.zeros_like(G)
-    for h in range(H - (fault == "drop_head")):
-        dG = dG + dW[:, h] * L[:, h]
-    dx = torch.zeros_like(xh)
+    hg = head_group(B, nc, l, H)
+    for h0 in range(0, H, hg):
+        part = torch.zeros_like(G)
+        for h in range(h0, min(h0 + hg, H - (fault == "drop_head"))):
+            part = part + dW[:, h] * L[:, h]
+        dG = dG + part
+    halves = [torch.zeros_like(xh), torch.zeros_like(xh)]
     col = torch.zeros(B, H, nc, l)
     for it in range(n_rt):
         r = slice(it * TILE, (it + 1) * TILE)
         if fault != "drop_dx_tile" or it < n_rt - 1:
-            dx = dx + _tf32_mm(W[..., r, :].transpose(-1, -2), dyh[..., r, :],
-                               True, dy_lo)
+            for w in range(2):
+                rw = slice(it * TILE + 32 * w, it * TILE + 32 * (w + 1))
+                halves[w] = halves[w] + _tf32_mm(
+                    dyh[..., rw, :].transpose(-1, -2), W[..., rw, :], dy_lo,
+                    True).transpose(-1, -2)
         if fault != "drop_colsum_tile" or it < n_rt - 1:
             groups = [M[..., g0:min(g0 + 16, r.stop), :].sum(-2)
                       for g0 in range(r.start, min(r.stop, l), 16)]
             col = col + sum(groups[1:], groups[0])
+    dx = halves[0] + halves[1]
     dcum = torch.zeros(B, H, nc, l)
     dc = torch.zeros(B, nc, l, b.shape[-1])
     for jt in range(n_rt):
         cj = slice(jt * TILE, (jt + 1) * TILE)
-        halves = [M[..., h0:h0 + 32].sum(-1)
-                  for h0 in range(cj.start, min(cj.stop, l), 32)]
-        share = sum(halves[1:], halves[0])
-        share[..., cj] -= col[..., cj]
-        share[..., :cj.start] = 0.0          # rows i < j: no share
-        dcum = dcum + share
+        for h0 in range(cj.start, min(cj.stop, l), 32):
+            half = slice(h0, min(h0 + 32, l))
+            share = M[..., half].sum(-1)
+            share[..., half] -= col[..., half]
+            share[..., :cj.start] = 0.0      # rows i < j: no share
+            dcum = dcum + share
         dc = dc + _tf32_mm(dG[..., cj], bf[:, :, cj], True, lo)
     da = dcum.double().flip(-1).cumsum(-1).flip(-1).float()
     db = torch.zeros_like(bf)
@@ -313,6 +357,35 @@ def test_one_tf32_rounding_of_dy_misses_atol(shape, strong, dtype):
     dX it misses ATOL, which is why both products split it."""
     args, want, scale = _case(shape, strong, dtype)
     assert bwd_err(emulate(*args, dy_lo=False), want, scale) > 2 * ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,strong", EMU_CASES[:2], ids=str)
+def test_one_bf16_part_of_dy_misses_atol_two_hold_it(shape, strong, dtype):
+    """dW = dY X^T takes dY (fp32) as bf16 parts: one part (8 significant
+    bits) misses ATOL, the kernel's two (16 bits) hold it four times
+    inside (bf16 reads about 2e-7, fp32, where X is split too, 2e-6), so
+    a third part would buy nothing the hold can see."""
+    args, want, scale = _case(shape, strong, dtype)
+    assert bwd_err(emulate(*args, dy_parts=1), want, scale) > 2 * ATOL
+    assert bwd_err(emulate(*args, dy_parts=2), want, scale) <= ATOL / 4
+
+
+@pytest.mark.parametrize("shape,hg", [
+    ((8, 8, 256, 64, 64, 128), 32), ((4, 8, 256, 128, 64, 128), 32),
+    ((4, 8, 256, 5, 64, 128), 2), ((1, 2, 512, 4, 64, 32), 1),
+    ((2, 1, 100, 3, 24, 40), 1), ((1, 1, 64, 0, 64, 16), 1)])
+def test_head_groups(shape, hg):
+    """The main pass's items at the train shapes: Mamba2-1.3B's 64 cells
+    of 64 heads and the reduced Jamba's 32 cells of 128 heads both split
+    into 512 items of 32 heads; five heads over 128 (cell, column tile)
+    pairs into groups of 2, 2 and 1 (the last group short)."""
+    B, nc, l, H, _, _ = shape
+    assert head_group(B, nc, l, H) == hg
+    if H:
+        groups = -(-H // hg)
+        assert (groups - 1) * hg < H <= groups * hg
 
 
 @pytest.mark.parametrize("fault", FAULTS)
