@@ -46,7 +46,8 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     launches counted; analytic/vector ratios), then at
                     2048^2 the thread executor, crash and resume, an
                     injected seam fault (recorded, the point fails, no
-                    plain version runs) and the process executor;
+                    plain version runs) and the process executor (at
+                    1024^2 since the family train steps came);
   8. throughput  -- the simulator's SpMSpM throughput
                     (``backend_throughput.bench``): rowwise at 1024^2,
                     4096^2 and 10000^2, flattened and partitioned at
@@ -66,7 +67,7 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     (1) on the plain version: logits and greedy tokens
                     agree, one kernel launch per layer;
  11. consistency -- in fp32 at full width, the last-position logits of a
-                    512-token prefill against 512 ``serve_step`` decode
+                    256-token prefill against 256 ``serve_step`` decode
                     steps; the fp32 kernels' launches counted in each
                     (one ``ssd_chunk`` a layer in the prefill), and each
                     kernel call held to its plain version on its own
@@ -131,7 +132,9 @@ test can rehearse them at a tiny size with the kernels' plain versions:
 30. flash_grad   -- the ``flash_attention`` backward kernel against its
                     plain version (the forward kernel's o and lse as
                     inputs) at OLMo-1B's train shape, Qwen2-7B's GQA
-                    shape and Whisper's cross shape, bf16 and fp32, timed
+                    shape, Whisper's cross shape and the family train
+                    steps' shapes (Whisper's encoder and decoder
+                    self-attention, the reduced Jamba's), bf16 and fp32, timed
                     beside its bound, the plain version and SDPA's
                     backward; each gradient element's error is taken
                     over the summed magnitude of its terms, and the
@@ -165,7 +168,19 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     layers: 96 ``ssd_chunk`` and 48 ``ssd_chunk_bwd``
                     launches a step, one step profiled;
 36. mamba2_train_consistency -- phase 32 for Mamba2-1.3B at 2 layers,
-                    against autograd through ``ssd_chunk_plain``.
+                    against autograd through ``ssd_chunk_plain``;
+37-42. {moe, encdec, hybrid}_train_step and _train_consistency -- phases
+                    31 and 32 for Qwen2-MoE-A2.7B at full width and 4
+                    layers (4 x 2048; fp32 at 2 layers), Whisper-small in
+                    full (8 x 448 tokens over 8 x 1,500 frames in bf16;
+                    fp32 at 2 encoder and 2 decoder layers) and Jamba at
+                    one superblock, half width and FFNs of 2,048
+                    (``hybrid_train_config``, 4 x 2048; fp32 whole, both
+                    backward kernels); the model-FLOP share on active
+                    parameters (Whisper's encoder over its frames); each
+                    kernel call's dtype logged; the MoE's dropped share;
+                    the fp32 holds replay the routes of the forward and
+                    the recomputation.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -197,6 +212,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.configs as TC  # noqa: E402
+from repro_torch.configs.base import (active_param_count,  # noqa: E402
+                                      encdec_weights)
 from repro_torch.accelerators import (DEFAULT_PARAMS, REGISTRY,  # noqa: E402
                                       simulate)
 from repro_torch.accelerators.zoo import ZOO  # noqa: E402
@@ -238,7 +255,8 @@ from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.data import (DataConfig,  # noqa: E402
                               ShardedSyntheticDataset)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
-                                      make_serve_step, make_train_step)
+                                      make_serve_step, make_train_step,
+                                      model_batch)
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
@@ -313,9 +331,12 @@ DSE_SIZE = (8192, 100_000)
 #: host time with its check; four took the script within 44 s of its
 #: 1,200 s limit when the host-bound graph phase ran slow)
 DSE_VECTOR_CAPS = (0.002, 6.0)
-#: the engine's checks at DSE_ENGINE_SIZE (a crash at the fourth point)
+#: the engine's checks at DSE_ENGINE_SIZE (a crash at the fourth point);
+#: 2,048^2 with 20K nonzeros took 72 s of the script on the card, cut to
+#: make room for the MoE, encoder-decoder and hybrid train steps (the
+#: checks compare the engine with itself, at any size)
 DSE_ENGINE_CAPS = (0.002, 0.05, 1.0, 6.0)
-DSE_ENGINE_SIZE = (2048, 20_000)
+DSE_ENGINE_SIZE = (1024, 10_000)
 
 #: every kernel the script counts, in the result line's order
 ALL_KERNELS = KERNELS + MODEL_KERNELS + (block_sparse_matmul,)
@@ -457,6 +478,14 @@ HYBRID_REDUCTION = ("n_layers 72 -> 8 (one superblock: 1 attention, 7 "
                     "unchanged: 8 KV heads of 128, 16 experts top-2, "
                     "vocab 65536, the SSM (d_state 128, head dim 64, "
                     "chunk 256, expand 2)")
+#: the reduction of that hybrid that trains on one card: AdamW with its
+#: fp32 master copy costs about 16 bytes a parameter, so the 11.56B of
+#: ``hybrid_config`` (185 GB of state) lose their FFN widths
+HYBRID_TRAIN_REDUCTION = ("HYBRID_REDUCTION, then d_ff and d_expert 12288 "
+                          "-> 2048: 3.01B parameters (1.60B active), about "
+                          "48 GB of AdamW state; unchanged: 32 query and 8 "
+                          "KV heads of 128, 16 experts top-2, the SSM (128 "
+                          "heads of 64, state 128, chunk 256)")
 
 
 def log(*args) -> None:
@@ -1750,13 +1779,13 @@ def train_launches(cfg) -> Dict[str, int]:
 
 
 @contextlib.contextmanager
-def plain_kernel(cfg):
-    """``cfg``'s prefill kernels replaced by their plain versions for the
-    duration (the run the kernels' prefill is held to)."""
-    saved = {n: getattr(PATH_KERNELS[n].module, n)
-             for n in prefill_launches(cfg)}
-    for n in saved:
-        setattr(PATH_KERNELS[n].module, n, PATH_KERNELS[n].plain)
+def wrapped_kernels(names, wrap: Callable[[str, Callable], Callable]):
+    """Each model kernel of ``names`` replaced, where the model path
+    calls it (``PathKernel.module``), by ``wrap(name, kernel)`` for the
+    duration."""
+    saved = {n: getattr(PATH_KERNELS[n].module, n) for n in names}
+    for n, kernel in saved.items():
+        setattr(PATH_KERNELS[n].module, n, wrap(n, kernel))
     try:
         yield
     finally:
@@ -1764,15 +1793,41 @@ def plain_kernel(cfg):
             setattr(PATH_KERNELS[n].module, n, kernel)
 
 
+def plain_kernel(cfg):
+    """``cfg``'s prefill kernels replaced by their plain versions for the
+    duration (the run the kernels' prefill is held to)."""
+    return wrapped_kernels(prefill_launches(cfg),
+                           lambda n, kernel: PATH_KERNELS[n].plain)
+
+
+def tally_calls(cfg, tally: Dict[tuple, int]):
+    """``cfg``'s forward and backward kernels (``train_launches``)
+    counted in ``tally`` for the duration by (kernel, dtype of its first
+    tensor, tensor shapes, other arguments)."""
+    def counting(name, kernel):
+        def call(*args, **kw):
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            key = (name, str(tensors[0].dtype).replace("torch.", ""),
+                   [tuple(t.shape) for t in tensors],
+                   [a for a in args if not isinstance(a, torch.Tensor)]
+                   + sorted(kw.items()))
+            key = tuple(map(str, key))
+            tally[key] = tally.get(key, 0) + 1
+            return kernel(*args, **kw)
+        return call
+    return wrapped_kernels(train_launches(cfg), counting)
+
+
 @contextlib.contextmanager
 def record_routes(routes: List[Tuple[torch.Tensor, ...]]):
-    """Every ``moe.route`` call's (eid, slot, keep, gate), appended to
-    ``routes`` for the duration."""
+    """Every ``moe.route`` call's (eid, slot, keep, gate), detached,
+    appended to ``routes`` for the duration (under remat, a layer's
+    forward and its recomputation in the backward each add one)."""
     route = moe_mod.route
 
     def recording(logits, top_k, capacity):
         out = route(logits, top_k, capacity)
-        routes.append(out)
+        routes.append(tuple(t.detach() for t in out))
         return out
     moe_mod.route = recording
     try:
@@ -1782,12 +1837,25 @@ def record_routes(routes: List[Tuple[torch.Tensor, ...]]):
 
 
 @contextlib.contextmanager
-def replay_routes(routes: List[Tuple[torch.Tensor, ...]]):
+def replay_routes(routes: List[Tuple[torch.Tensor, ...]],
+                  grad: bool = False):
     """``moe.route`` answering with ``routes`` in order for the duration
     (the plain run taking the kernel run's routing decisions); every
-    route must be used."""
+    route must be used, and none asked for past the last.  With
+    ``grad`` (a run under autograd) only the decisions (eid, slot, keep)
+    are replayed and the gates taken anew from the run's own logits
+    (``moe.gates``), so the router gets its gradient."""
     route, it = moe_mod.route, iter(routes)
-    moe_mod.route = lambda logits, top_k, capacity: next(it)
+
+    def replaying(logits, top_k, capacity):
+        out = next(it, None)
+        if out is None:
+            raise AssertionError(f"replay_routes: more than {len(routes)} "
+                                 f"routes asked for")
+        if grad:
+            return out[:3] + (moe_mod.gates(logits, out[0], top_k),)
+        return out
+    moe_mod.route = replaying
     try:
         yield
     finally:
@@ -2112,18 +2180,13 @@ def decode_launches(cfg, steps: int) -> Dict[str, int]:
             for k in prefill_launches(cfg)}
 
 
-@contextlib.contextmanager
 def record_calls(cfg, calls: Dict[tuple, tuple], backward: bool = False):
     """``cfg``'s model kernels (``prefill_launches``; with ``backward``
     also their backward kernels, ``train_launches``) run as before for
-    the duration, and the
-    first call of each signature (kernel, shapes, strides, dtypes, other
-    arguments) is kept in ``calls`` as (name, kernel, copies of its
-    arguments, keywords), to be held to the plain version by
-    ``hold_calls`` afterwards."""
-    names = list(train_launches(cfg) if backward else prefill_launches(cfg))
-    saved = {n: getattr(PATH_KERNELS[n].module, n) for n in names}
-
+    the duration, and the first call of each signature (kernel, shapes,
+    strides, dtypes, other arguments) is kept in ``calls`` as (name,
+    kernel, copies of its arguments, keywords), to be held to the plain
+    version by ``hold_calls`` afterwards."""
     def recording(name, kernel):
         def call(*args, **kw):
             key = (name,) + tuple(
@@ -2136,13 +2199,8 @@ def record_calls(cfg, calls: Dict[tuple, tuple], backward: bool = False):
                     else a for a in args), dict(kw))
             return kernel(*args, **kw)
         return call
-    for n, kernel in saved.items():
-        setattr(PATH_KERNELS[n].module, n, recording(n, kernel))
-    try:
-        yield
-    finally:
-        for n, kernel in saved.items():
-            setattr(PATH_KERNELS[n].module, n, kernel)
+    return wrapped_kernels(train_launches(cfg) if backward
+                           else prefill_launches(cfg), recording)
 
 
 def hold_calls(calls: Dict[tuple, tuple], label: str) -> Dict[str, float]:
@@ -2636,6 +2694,15 @@ def hybrid_config():
         moe=dataclasses.replace(cfg.moe, d_expert=cfg.moe.d_expert // 2))
 
 
+def hybrid_train_config():
+    """``hybrid_config`` as ``HYBRID_TRAIN_REDUCTION`` cuts it for a
+    train step on one card."""
+    cfg = hybrid_config()
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-ff2k", d_ff=HYBRID_TRAIN_FF,
+        moe=dataclasses.replace(cfg.moe, d_expert=HYBRID_TRAIN_FF))
+
+
 def _timed(name: str, smi: str, fn: Callable, /, *args, **kw):
     """``fn(*args, **kw)``, its seconds logged as phase ``name``'s."""
     t0 = time.perf_counter()
@@ -2734,10 +2801,16 @@ def attach_model_paths(kernels: List[Dict], paths: Dict[str, Dict[str, int]],
 # ---------------------------------------------------------------------- #
 #: ((b, h, hkv, sq, sk, d), causal) of phase flash_grad: OLMo-1B's train
 #: shape, Qwen2-7B's GQA prefill shape, Whisper's cross-attention (a
-#: ragged last key tile at 1,500 frames)
+#: ragged last key tile at 1,500 frames); then the train steps' other
+#: shapes: Whisper's encoder (1,500 frames, non-causal, ragged) and
+#: decoder self-attention (448 tokens, causal, ragged) at its train
+#: batch, and the reduced Jamba's GQA attention at its
 FLASH_GRAD_CASES = (((8, 16, 16, 2048, 2048, 128), True),
                     ((4, 28, 4, 2048, 2048, 128), True),
-                    ((4, 12, 12, 448, 1500, 64), False))
+                    ((4, 12, 12, 448, 1500, 64), False),
+                    ((8, 12, 12, 1500, 1500, 64), False),
+                    ((8, 12, 12, 448, 448, 64), True),
+                    ((4, 32, 8, 2048, 2048, 128), True))
 #: the training path: OLMo-1B at its published widths, batch x tokens
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
@@ -2757,6 +2830,19 @@ TRAINER_STEPS, TRAINER_EVERY = 6, 3
 #: a case of phase ssd_grad off the kernel's 64-row tiles, N and P off 16
 #: (the card tests' ragged forward case)
 SSD_RAGGED = (2, 1, 100, 3, 24, 40)
+#: the MoE, encoder-decoder and hybrid train steps: Qwen2-MoE-A2.7B at
+#: full width, its depth cut to this many layers (2.90B parameters, 0.97B
+#: active: about 46 GB of AdamW state); batch x tokens of its step (8 x
+#: 2,048's fp32 logits over 151,936 words would add about 10 GB)
+MOE_TRAIN_LAYERS, MOE_TRAIN_SHAPE = 4, (4, 2048)
+#: Whisper-small in full: 8 x 448 decoder tokens over 8 x 1,500 frames
+ENCDEC_TRAIN_SHAPE = (8, 448)
+#: the hybrid (``hybrid_train_config``): its FFN widths and batch
+HYBRID_TRAIN_FF, HYBRID_TRAIN_SHAPE = 2048, (4, 2048)
+#: the fp32 steps held to the plain kernels: Whisper at full width with
+#: this many encoder and decoder layers, over all 448 tokens
+ENCDEC_CONSISTENCY_LAYERS, ENCDEC_TRAIN_CONSISTENCY_SHAPE = 2, (2, 448)
+
 
 def ssd_grad_cases():
     """((B, nc, l, H, P, N), strong decay) of phase ssd_grad: Mamba2-1.3B's
@@ -3165,21 +3251,81 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
     return rec
 
 
-def _model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model operations of one train step: 6 N T for the weights plus
-    the sequence mixers' products that no weight holds, forward once and
-    backward twice: attention's QK^T and PV over the causal pairs
-    (``flash_flops`` a layer), the SSD's stage 1, G = C B^T and (G o L) X
-    over each chunk's causal half (``ssd_flops`` a layer); the SSD's
-    other stages are left out, as are rematerialisation and the norms."""
-    layers = prefill_launches(cfg)
-    mix = 0
-    if "flash_attention" in layers:
-        mix += layers["flash_attention"] * flash_flops(
-            attn_shape(cfg, batch, seq))
-    if "ssd_chunk" in layers:
-        mix += layers["ssd_chunk"] * ssd_flops(ssd_shape(cfg, batch, seq))
-    return 6.0 * n_params * batch * seq + 3 * mix
+def weight_tokens(cfg, batch: int, seq: int) -> float:
+    """The sum over the model's weights of the active parameters times
+    the positions each multiplies in a batch of ``batch`` x ``seq``
+    tokens: ``active_param_count`` (a MoE's routed top-k and shared
+    experts, the reference's N of 6 N D) times the tokens; for an
+    encoder-decoder ``encdec_weights``, the first over the
+    ``enc_frames`` frames and the second over the tokens."""
+    if cfg.family != "encdec":
+        return float(active_param_count(cfg)) * batch * seq
+    enc, dec = encdec_weights(cfg)
+    return float(enc) * batch * cfg.enc_frames + float(dec) * batch * seq
+
+
+def mixer_calls(cfg, batch: int, seq: int) -> List[Tuple[str, Tuple, bool,
+                                                         int]]:
+    """The sequence mixers' calls of one forward over ``batch`` x
+    ``seq`` tokens: (kernel, shape, causal, calls).  Whisper: the
+    encoder's non-causal self-attention over its frames, the decoder's
+    causal self-attention and its cross-attention into the frames."""
+    if cfg.family == "encdec":
+        b, h, hkv, d, f = batch, cfg.n_heads, cfg.n_kv_heads, cfg.hdim, \
+            cfg.enc_frames
+        return [("flash_attention", (b, h, hkv, f, f, d), False,
+                 cfg.enc_layers),
+                ("flash_attention", (b, h, hkv, seq, seq, d), True,
+                 cfg.n_layers),
+                ("flash_attention", (b, h, hkv, seq, f, d), False,
+                 cfg.n_layers)]
+    shapes = {"flash_attention": attn_shape(cfg, batch, seq),
+              "ssd_chunk": ssd_shape(cfg, batch, seq)
+              if cfg.ssm is not None else None}
+    return [(name, shapes[name], True, n)
+            for name, n in prefill_launches(cfg).items()]
+
+
+def _model_flops(cfg, batch: int, seq: int) -> float:
+    """Model operations of one train step: 6 x ``weight_tokens`` for the
+    weights plus the sequence mixers' products that no weight holds
+    (``mixer_calls``), forward once and backward twice: attention's QK^T
+    and PV over the pairs its mask keeps (``flash_flops``), the SSD's
+    stage 1, G = C B^T and (G o L) X over each chunk's causal half
+    (``ssd_flops``); the SSD's other stages are left out, as are
+    rematerialisation, the norms and the routers' dropped assignments."""
+    mix = sum(n * (flash_flops(shape, causal) if name == "flash_attention"
+                   else ssd_flops(shape))
+              for name, shape, causal, n in mixer_calls(cfg, batch, seq))
+    return 6.0 * weight_tokens(cfg, batch, seq) + 3 * mix
+
+
+def train_data(cfg, batch: int, seq: int, seed: int
+               ) -> ShardedSyntheticDataset:
+    """The ported pipeline's stream for ``cfg`` as the trainer builds it:
+    an encoder-decoder's batches carry its frames (``enc_frames`` x
+    ``d_model``)."""
+    return ShardedSyntheticDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed,
+        enc_frames=cfg.enc_frames if cfg.family == "encdec" else 0,
+        d_model=cfg.d_model))
+
+
+def train_batch(cfg, data: ShardedSyntheticDataset, step: int,
+                device) -> Dict[str, torch.Tensor]:
+    """Step ``step``'s global batch of ``data`` on ``device`` as the
+    port's train step and trainer take it (``model_batch``: the frames
+    in the model's dtype)."""
+    return model_batch(cfg, data.global_batch_at(step), device)
+
+
+def moe_layers(cfg) -> int:
+    """The layers with a routed FFN: each calls ``moe.route`` once a
+    forward."""
+    if cfg.moe is None:
+        return 0
+    return cfg.n_layers // cfg.moe_every if cfg.family == "hybrid" \
+        else cfg.n_layers
 
 
 def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
@@ -3188,33 +3334,46 @@ def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
                      card: str = "") -> Dict:
     """``make_train_step`` on ``cfg`` (seeded weights in the config's
     dtype, AdamW by ``for_config`` with its fp32 master copy, ``remat``
-    on) over batches of the ported pipeline: ``warmup`` steps, then
-    ``steps`` steps timed on the host clock, synced, every model
-    kernel's count set to 0 just before and read just after.  Loss and
-    grad norm finite; on the card each forward kernel launched twice a
-    layer a step (the forward and its recomputation) and its backward
-    once (``train_launches``).  Returns the launches and the
-    measurements."""
+    on) over batches of the ported pipeline (``train_batch``: Whisper's
+    frames in the model's dtype): ``warmup`` steps, the first with each
+    kernel call counted by signature (``tally_calls``: every call must
+    be in the model's dtype) and the routes recorded (the dropped share
+    of a MoE's assignments), then ``steps`` steps timed on the host
+    clock, synced, on batches made before the clock starts (the
+    pipeline's seconds a batch are logged apart), every model kernel's
+    count set to 0 just before and read just after.  Loss and grad norm
+    finite; on the card each forward kernel launched twice a layer a
+    step (the forward and its recomputation) and its backward once
+    (``train_launches``).  The model-FLOP share counts
+    ``_model_flops``.  Returns the launches and the measurements."""
     device = torch.device(device)
     params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
     n_params = sum(p.numel() for p in params.parameters())
     optimizer = opt_mod.for_config(cfg)
     state = optimizer.init(dict(params.named_parameters()))
-    data = ShardedSyntheticDataset(DataConfig(
-        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
+    data = train_data(cfg, batch, seq, seed)
     step = make_train_step(cfg, optimizer, device=device)
-    metrics = []
+    metrics, tally, routes = [], {}, []
     for i in range(warmup):
-        params, state, m = step(params, state, data.global_batch_at(i))
+        with tally_calls(cfg, tally) if i == 0 else contextlib.nullcontext(), \
+                record_routes(routes) if i == 0 else contextlib.nullcontext():
+            params, state, m = step(params, state,
+                                    train_batch(cfg, data, i, device))
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    # the timed steps' batches made first (the pipeline synthesises
+    # Whisper's frames on the host: timed apart, not in the step)
+    t0 = time.perf_counter()
+    batches = [train_batch(cfg, data, i, device)
+               for i in range(warmup, warmup + steps + 1)]
     _sync(device)
+    data_s = (time.perf_counter() - t0) / len(batches)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     for k in MODEL_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    for i in range(warmup, warmup + steps):
-        params, state, m = step(params, state, data.global_batch_at(i))
+    for i in range(steps):
+        params, state, m = step(params, state, batches[i])
     _sync(device)
     dt = (time.perf_counter() - t0) / steps
     metrics.append((float(m["loss"]), float(m["grad_norm"])))
@@ -3223,33 +3382,56 @@ def phase_train_step(device, cfg, batch: int = TRAIN_BATCH,
                 if k.__name__ in want}
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
         else None
-    profile = profile_step(lambda: step(params, state, data.global_batch_at(
-        warmup + steps)), device) if device.type == "cuda" else None
+    profile = profile_step(lambda: step(params, state, batches[-1]),
+                           device) if device.type == "cuda" else None
+    del batches
     del params, state
     per_step = {n: c / steps for n, c in launches.items()}
     if device.type != "cuda":
         want = {n: 0 for n in want}
-    if per_step != want:
-        raise AssertionError(f"train step launched {per_step} a step, "
-                             f"want {want}")
+    dtypes = {key[1] for key in tally}
+    tallied = {n: sum(c for key, c in tally.items() if key[0] == n)
+               for n in train_launches(cfg)}
+    n_routes = (2 if cfg.remat else 1) * moe_layers(cfg)
+    if per_step != want or dtypes != {cfg.dtype} or \
+            tallied != train_launches(cfg) or len(routes) != n_routes:
+        raise AssertionError(
+            f"train step launched {per_step} a step, want {want}; kernel "
+            f"calls in {dtypes} for a {cfg.dtype} model, {tallied} a step "
+            f"(want {train_launches(cfg)}); {len(routes)} routes, want "
+            f"{n_routes}")
     if not all(np.isfinite(x) for pair in metrics for x in pair):
         raise AssertionError(f"train step: non-finite loss or grad norm "
                              f"{metrics}")
     tokens = batch * seq
-    flops = _model_flops(cfg, n_params, batch, seq)
+    active = active_param_count(cfg)
+    flops = _model_flops(cfg, batch, seq)
     mfu = flops / dt / PEAK_FLOPS[torch.bfloat16]
-    log(f"train_step {cfg.name} {cfg.dtype} {n_params / 1e9:.3f}B params, "
-        f"batch {batch}x{seq}, AdamW (fp32 master), remat {cfg.remat} on "
+    drop = dropped_share(routes)
+    frames = f" over {batch}x{cfg.enc_frames} frames ({cfg.dtype})" \
+        if cfg.family == "encdec" else ""
+    log(f"train_step {cfg.name} {cfg.dtype} {n_params / 1e9:.3f}B params "
+        f"({active / 1e9:.3f}B active by active_param_count), batch "
+        f"{batch}x{seq}{frames}, AdamW (fp32 master), remat {cfg.remat} on "
         f"{card or device}: {dt:.4f} s a step, {tokens / dt:.1f} tokens/s, "
         f"model FLOP share {mfu:.2%} of 989 TFLOP/s ({flops:.4g} a step); "
         f"peak memory {peak if peak is None else f'{peak / 2**30:.2f} GiB'}"
-        f"; loss / grad norm by step {metrics}; launches a step {per_step}")
+        f"; the pipeline's batch {data_s:.4f} s on the host, apart; loss / "
+        f"grad norm by step {metrics}; launches a step {per_step}"
+        + ("" if drop is None else f"; dropped share {drop:.4%} of "
+           f"{sum(r[2].numel() for r in routes)} assignments over "
+           f"{len(routes)} routes (forward and recomputation)"))
+    calls = [" ".join(key) + f": {n}" for key, n in tally.items()]
+    for line in calls:
+        log(f"train_step {cfg.name} kernel calls in step 0: {line}")
     if profile is not None:
         log_profile(profile, dt, cfg.name, card or str(device),
                     mixers=tuple(prefill_launches(cfg)))
     return {"launches": launches, "s_per_step": dt, "tokens_per_s":
             tokens / dt, "mfu": mfu, "peak_bytes": peak,
-            "n_params": n_params, "metrics": metrics}
+            "n_params": n_params, "active_params": active,
+            "metrics": metrics, "dropped_share": drop, "data_s": data_s,
+            "calls": calls}
 
 
 def profile_step(run: Callable[[], object], device) -> Dict:
@@ -3338,12 +3520,16 @@ def _loss_and_grads(cfg, params, batch):
 def phase_train_consistency(device, cfg, shape=TRAIN_CONSISTENCY_SHAPE,
                             seed: int = 6, card: str = "") -> Dict:
     """In fp32, one train step's loss and every parameter's gradient
-    (the train step's ``api.loss_fn`` under autograd) with the model's
-    kernels (attention or SSD and their backwards), against the same with
-    those kernels on their plain versions (``plain_kernel``; torch
-    autograd through them): the loss within TRAIN_LOSS_RTOL, each
-    gradient within TRAIN_GRAD_TOL of its max abs.  The kernels' counts
-    are set to 0 just before the kernel run and read just after
+    (the train step's ``api.loss_fn`` under autograd, over the pipeline's
+    batch: ``train_batch``) with the model's kernels (attention or SSD
+    and their backwards), against the same with those kernels on their
+    plain versions (``plain_kernel``; torch autograd through them): the
+    loss within TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_TOL of
+    its max abs.  With MoE layers the plain run replays the kernel run's
+    routes (``replay_routes`` with ``grad``: the decisions, the gates
+    from its own logits), forward and recomputation in the same order,
+    as many as recorded: two a MoE layer under remat.  The kernels'
+    counts are set to 0 just before the kernel run and read just after
     (``train_launches`` on the card: 2 forward and 1 backward launches a
     layer); each forward and backward kernel call is held to its plain
     version (``hold_calls``) on copies of its own inputs."""
@@ -3351,27 +3537,27 @@ def phase_train_consistency(device, cfg, shape=TRAIN_CONSISTENCY_SHAPE,
     cfg = dataclasses.replace(cfg, dtype="float32")
     b, s = shape
     params = api.init(cfg, torch.Generator(device).manual_seed(seed), device)
-    data = ShardedSyntheticDataset(DataConfig(
-        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed))
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in data.global_batch_at(0).items()}
+    batch = train_batch(cfg, train_data(cfg, b, s, seed), 0, device)
     calls: Dict[tuple, tuple] = {}
+    routes: List[Tuple[torch.Tensor, ...]] = []
     for k in MODEL_KERNELS:
         k.launches = 0
-    with record_calls(cfg, calls, backward=True):
+    with record_calls(cfg, calls, backward=True), record_routes(routes):
         loss, grads = _loss_and_grads(cfg, params, batch)
     _sync(device)
     want = train_launches(cfg)
     launches = {k.__name__: k.launches for k in MODEL_KERNELS
                 if k.__name__ in want}
-    with plain_kernel(cfg):
+    with plain_kernel(cfg), replay_routes(routes, grad=True):
         plain_loss, plain = _loss_and_grads(cfg, params, batch)
     del params
     if device.type != "cuda":
         want = {n: 0 for n in want}
-    if launches != want:
+    n_routes = (2 if cfg.remat else 1) * moe_layers(cfg)
+    if launches != want or len(routes) != n_routes:
         raise AssertionError(f"train_consistency launched {launches}, "
-                             f"want {want}")
+                             f"want {want}; {len(routes)} routes recorded "
+                             f"and replayed, want {n_routes}")
     loss_rel = abs(loss - plain_loss) / abs(plain_loss)
     worst, worst_name = 0.0, ""
     for name, w in plain.items():
@@ -3385,13 +3571,21 @@ def phase_train_consistency(device, cfg, shape=TRAIN_CONSISTENCY_SHAPE,
                              f"(limit {TRAIN_LOSS_RTOL}), worst gradient "
                              f"{worst_name} {worst:.3g} of its max (limit "
                              f"{TRAIN_GRAD_TOL})")
-    log(f"train_consistency {cfg.name} fp32 {cfg.n_layers} layers, batch "
-        f"{b}x{s} on {card or device}: loss {loss:.7g}, plain kernels "
-        f"{plain_loss:.7g} (rel {loss_rel:.3g}); worst gradient "
-        f"{worst_name} {worst:.3g} of its max abs; launches {launches}")
+    layers = f"{cfg.enc_layers} encoder and {cfg.n_layers} decoder" \
+        if cfg.family == "encdec" else str(cfg.n_layers)
+    frames = f" over {b}x{cfg.enc_frames} frames" \
+        if cfg.family == "encdec" else ""
+    replayed = f"; {len(routes)} routes recorded and replayed (forward " \
+        f"and recomputation), none left over, dropped share " \
+        f"{dropped_share(routes):.4%}" if routes else ""
+    log(f"train_consistency {cfg.name} fp32 {layers} layers, batch "
+        f"{b}x{s}{frames} on {card or device}: loss {loss:.7g}, plain "
+        f"kernels {plain_loss:.7g} (rel {loss_rel:.3g}); worst gradient "
+        f"{worst_name} {worst:.3g} of its max abs; launches {launches}"
+        f"{replayed}")
     held = hold_calls(calls, f"train_consistency {cfg.name}")
     return {"launches": launches, "loss_rel": loss_rel, "grad_rel": worst,
-            "held": held}
+            "held": held, "routes": len(routes)}
 
 
 def phase_trainer(device, arch: str = TRAIN_ARCH,
@@ -3463,14 +3657,67 @@ def train_config(arch: str = TRAIN_ARCH, layers: Optional[int] = None):
                                                           n_layers=layers)
 
 
+def family_train_plan():
+    """Phases 37-42, one model each: (path, the train step's config and
+    (batch, tokens), the fp32 step's config and (batch, tokens))."""
+    enc, hyb = TC.get(ENCDEC_ARCH), hybrid_train_config()
+    return (("moe", train_config(MOE_ARCH, MOE_TRAIN_LAYERS),
+             MOE_TRAIN_SHAPE, train_config(MOE_ARCH, TRAIN_CUT_LAYERS),
+             TRAIN_CONSISTENCY_SHAPE),
+            ("encdec", enc, ENCDEC_TRAIN_SHAPE, dataclasses.replace(
+                enc, n_layers=ENCDEC_CONSISTENCY_LAYERS,
+                enc_layers=ENCDEC_CONSISTENCY_LAYERS),
+             ENCDEC_TRAIN_CONSISTENCY_SHAPE),
+            ("hybrid", hyb, HYBRID_TRAIN_SHAPE, hyb,
+             TRAIN_CONSISTENCY_SHAPE))
+
+
+def phase_family_training(device, card: str, plan=None, warmup: int =
+                          TRAIN_WARMUP, steps: int = TRAIN_STEPS
+                          ) -> Tuple[Dict[str, Dict], Dict[str, Dict],
+                                     Dict[str, Dict]]:
+    """Phases 37-42 (``family_train_plan``), one model at a time, the
+    cache emptied after each phase: ``<path>_train_step`` and
+    ``<path>_train_consistency``.  Returns the steps' measurements, each
+    path's launches and the consistency results."""
+    steps_out, paths, cons = {}, {}, {}
+    for path, cfg, (b, s), cut, cut_shape in plan or family_train_plan():
+        if path == "hybrid":
+            log(f"training: {cfg.name} = {HYBRID_ARCH} with "
+                f"{HYBRID_TRAIN_REDUCTION}")
+        out = _timed(f"{path}_train_step", card, phase_train_step, device,
+                     cfg, batch=b, seq=s, warmup=warmup, steps=steps,
+                     card=card)
+        steps_out[path] = out
+        paths[f"{path}_train_step"] = out["launches"]
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        if cut is not cfg:
+            log(f"training: {cut.name} = {cfg.name} with n_layers "
+                f"{cfg.n_layers} -> {cut.n_layers}"
+                + (f" and enc_layers {cfg.enc_layers} -> {cut.enc_layers}"
+                   if cfg.family == "encdec" else "")
+                + f" in phase {path}_train_consistency (widths, heads and "
+                f"vocab unchanged)")
+        c = _timed(f"{path}_train_consistency", card,
+                   phase_train_consistency, device, cut, shape=cut_shape,
+                   card=card)
+        cons[f"{path}_train_consistency"] = c
+        paths[f"{path}_train_consistency"] = c["launches"]
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return steps_out, paths, cons
+
+
 def phase_training(device, card: str) -> Tuple[List[Dict], Dict[str, Dict],
                                                Dict[str, Dict]]:
-    """Phases 30-36: flash_grad, train_step (OLMo-1B, full), then
+    """Phases 30-42: flash_grad, train_step (OLMo-1B, full), then
     train_consistency and trainer at ``TRAIN_CUT_LAYERS`` layers; then
     ssd_grad, mamba2_train_step (Mamba2-1.3B, full) and
-    mamba2_train_consistency at ``TRAIN_CUT_LAYERS`` layers.  Returns the
-    two backward kernels' records, each path's launches and the
-    consistency results."""
+    mamba2_train_consistency at ``TRAIN_CUT_LAYERS`` layers; then the
+    MoE, encoder-decoder and hybrid train paths
+    (``phase_family_training``).  Returns the two backward kernels'
+    records, each path's launches and the consistency results."""
     rec = _timed("flash_grad", card, phase_flash_grad, device, card=card)
     torch.cuda.empty_cache()
     full = train_config()
@@ -3486,8 +3733,9 @@ def phase_training(device, card: str) -> Tuple[List[Dict], Dict[str, Dict],
     torch.cuda.empty_cache()
     trainer = _timed("trainer", card, phase_trainer, device, card=card)
     torch.cuda.empty_cache()
-    rec["train_step"] = {k: step[k] for k in (
-        "s_per_step", "tokens_per_s", "mfu", "peak_bytes", "n_params")}
+    keys = ("s_per_step", "tokens_per_s", "mfu", "peak_bytes", "n_params",
+            "active_params")
+    rec["train_step"] = {k: step[k] for k in keys}
     rec["trainer"] = {k: trainer[k] for k in ("loss", "resumed_loss",
                                               "bit_equal", "write_s")}
     ssd_rec = _timed("ssd_grad", card, phase_ssd_grad, device, card=card)
@@ -3504,8 +3752,14 @@ def phase_training(device, card: str) -> Tuple[List[Dict], Dict[str, Dict],
     m_cons = _timed("mamba2_train_consistency", card,
                     phase_train_consistency, device, m_cut, card=card)
     torch.cuda.empty_cache()
-    ssd_rec["train_step"] = {k: m_step[k] for k in (
-        "s_per_step", "tokens_per_s", "mfu", "peak_bytes", "n_params")}
+    ssd_rec["train_step"] = {k: m_step[k] for k in keys}
+    f_steps, f_paths, f_cons = phase_family_training(device, card)
+    for path, out in f_steps.items():
+        # the MoE's attention is the flash kernel's alone; the hybrid's
+        # step runs both backward kernels
+        for r, name in ((rec, "flash_attention"), (ssd_rec, "ssd_chunk")):
+            if name in out["launches"]:
+                r[f"{path}_train_step"] = {k: out[k] for k in keys}
     # launches are summed over the paths by ``attach_model_paths``
     rec["launches_by_path"] = {}
     ssd_rec["launches_by_path"] = {}
@@ -3513,9 +3767,10 @@ def phase_training(device, card: str) -> Tuple[List[Dict], Dict[str, Dict],
              "train_consistency": cons["launches"],
              "trainer": trainer["launches"],
              "mamba2_train_step": m_step["launches"],
-             "mamba2_train_consistency": m_cons["launches"]}
+             "mamba2_train_consistency": m_cons["launches"], **f_paths}
     return [rec, ssd_rec], paths, {"train_consistency": cons,
-                                   "mamba2_train_consistency": m_cons}
+                                   "mamba2_train_consistency": m_cons,
+                                   **f_cons}
 
 
 def main() -> int:
@@ -3528,6 +3783,9 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    log(f"cut: phase dse's engine checks at {DSE_ENGINE_SIZE[0]}^2, "
+        f"{DSE_ENGINE_SIZE[1]} nonzeros (was 2048^2, 20000): room for "
+        f"phases 37-42")
     kernels = _timed("kernels", smi, phase_kernels, "cuda")
     _timed("oracle", smi, phase_oracle, "cuda")
     main_run = _timed("main", smi, phase_main, "cuda", card=smi)

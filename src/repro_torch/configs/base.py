@@ -137,12 +137,21 @@ def cells(cfg: ModelConfig) -> List[str]:
     return out
 
 
+def _attention_params(cfg: ModelConfig) -> Tuple[float, float]:
+    """One attention's (query and output, key and value) projections."""
+    d, h = cfg.d_model, cfg.hdim
+    return 2 * d * (cfg.n_heads * h), 2 * d * (cfg.n_kv_heads * h)
+
+
+def _embedding_params(cfg: ModelConfig) -> float:
+    return cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+
+
 def param_count(cfg: ModelConfig) -> float:
     """Approximate parameter count (for MODEL_FLOPS = 6*N*D)."""
-    d, h = cfg.d_model, cfg.hdim
-    emb = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    att = d * (cfg.n_heads * h) + 2 * d * (cfg.n_kv_heads * h) \
-        + (cfg.n_heads * h) * d
+    d = cfg.d_model
+    emb = _embedding_params(cfg)
+    att = sum(_attention_params(cfg))
     ffn_mult = 3 if cfg.act in ("swiglu", "geglu") else 2
     per_layer: float = 0.0
     if cfg.family == "ssm":
@@ -174,6 +183,21 @@ def param_count(cfg: ModelConfig) -> float:
         ffn = ffn_mult * d * cfg.d_ff
     layers = cfg.n_layers + cfg.enc_layers
     return layers * (att + ffn) + emb
+
+
+def encdec_weights(cfg: ModelConfig) -> Tuple[float, float]:
+    """An encoder-decoder's weights as (those over the encoder's frames,
+    those over the decoder's tokens): the encoder's blocks and each
+    decoder layer's cross-attention key and value projections, then the
+    decoder's blocks with the cross-attention's query and output
+    projections, the embedding and the head.  Their sum is
+    ``param_count`` plus the decoder's cross-attentions, which
+    ``param_count`` leaves out as the reference's does."""
+    q_o, k_v = _attention_params(cfg)
+    ffn_mult = 3 if cfg.act in ("swiglu", "geglu") else 2
+    block = q_o + k_v + ffn_mult * cfg.d_model * cfg.d_ff
+    return (cfg.enc_layers * block + cfg.n_layers * k_v,
+            cfg.n_layers * (block + q_o) + _embedding_params(cfg))
 
 
 def active_param_count(cfg: ModelConfig) -> float:

@@ -27,11 +27,21 @@ from repro_torch.optim import optimizers as opt
 Params = Any
 
 
-def _on(device: torch.device, batch: Dict[str, Any]
-        ) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays or tensors as tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(
-        v, torch.Tensor) else v).to(device) for k, v in batch.items()}
+def model_batch(cfg: ModelConfig, batch: Dict[str, Any], device
+                ) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors as the model takes it, on
+    ``device``: its floating inputs (an encoder-decoder's frames, a
+    VLM's patches) in the model's dtype, as the reference's input specs
+    declare them (the data pipeline makes them fp32, and fp32 frames
+    would run a bf16 encoder in fp32)."""
+    dtype = getattr(torch, cfg.dtype)
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        out[k] = t.to(device, dtype) if t.is_floating_point() \
+            else t.to(device)
+    return out
 
 
 def make_train_step(cfg: ModelConfig,
@@ -66,7 +76,7 @@ def make_train_step(cfg: ModelConfig,
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         names, leaves = list(named), list(named.values())
-        batch = _on(device, batch)
+        batch = model_batch(cfg, batch, device)
         if accum_steps == 1:
             loss, grads = grads_of(params, names, leaves, batch)
         else:

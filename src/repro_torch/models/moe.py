@@ -97,16 +97,25 @@ def route(logits: torch.Tensor, top_k: int, capacity: int
     orders them (``torch.topk`` does not)."""
     *lead, t, e = logits.shape
     probs = torch.softmax(logits.float(), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, gate_idx = vals[..., :top_k], idx[..., :top_k]
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
-    eid = gate_idx.reshape(*lead, t * top_k)
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+    eid = idx[..., :top_k].reshape(*lead, t * top_k)
     onehot = F.one_hot(eid, e)                              # [..., t*k, e]
     pos = torch.cumsum(onehot, dim=-2) - onehot             # arrival order
     slot = torch.sum(pos * onehot, dim=-1)
     keep = slot < capacity
-    return eid, slot, keep, gate_vals.reshape(*lead, t * top_k)
+    return eid, slot, keep, gates(logits, eid, top_k)
+
+
+def gates(logits: torch.Tensor, eid: torch.Tensor, top_k: int
+          ) -> torch.Tensor:
+    """The gates of the chosen experts ``eid`` [..., t*k] from router
+    logits [..., t, e]: their softmax probabilities (fp32) over their
+    sum, so that the router's gradient flows through them."""
+    *lead, t, _ = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals = torch.gather(probs, -1, eid.reshape(*lead, t, top_k))
+    vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+    return vals.reshape(*lead, t * top_k)
 
 
 def expert_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:

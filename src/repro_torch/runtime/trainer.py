@@ -104,13 +104,10 @@ class Trainer:
 
     def _device_batch(self, batch: Dict[str, np.ndarray]
                       ) -> Dict[str, torch.Tensor]:
-        fixed = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if k in ("patches", "frames"):
-                t = t.float()
-            fixed[k] = t.to(self.device)
-        return fixed
+        """The pipeline's batch as the step takes it: frames and patches
+        in the model's dtype (the reference's trainer feeds them in fp32,
+        its input specs in the model's dtype)."""
+        return ST.model_batch(self.cfg, batch, self.device)
 
     @staticmethod
     def _tree(state: TrainState) -> Dict[str, Params]:

@@ -3,6 +3,7 @@ no silent CPU fallback, and ``chip_smoke.py``'s phases rehearsed on the
 CPU at a tiny size."""
 import ast
 import contextlib
+import dataclasses
 import os
 import re
 import shutil
@@ -1020,25 +1021,181 @@ def test_chip_smoke_ssd_training_phases_rehearse_on_cpu(chip_smoke):
 
 def test_chip_smoke_train_launches_and_model_flops(chip_smoke):
     """Each forward kernel twice a layer a step under remat and its
-    backward once: Mamba2-1.3B 96 and 48, OLMo-1B 32 and 16; the model
-    FLOPs add the mixers' products three times (forward once, backward
-    twice): OLMo's attention as before, Mamba2's SSD stage 1."""
+    backward once: Mamba2-1.3B 96 and 48, OLMo-1B 32 and 16, Qwen2-MoE
+    at 4 layers 8 and 4, Whisper-small 72 and 36; the model FLOPs are 6
+    times the active parameters times the positions they see
+    (``weight_tokens``) plus the mixers' products three times (forward
+    once, backward twice): OLMo's attention, Mamba2's SSD stage 1, the
+    MoE's active experts only, Whisper's encoder over its 1,500 frames
+    (non-causal) with the decoder's causal self-attention and its
+    cross-attention, the hybrid's attention and SSD."""
     import repro_torch.configs as C
+    from repro_torch.configs.base import (active_param_count,
+                                          encdec_weights, param_count)
     mamba, olmo = C.get("mamba2-1.3b"), C.get("olmo-1b")
+    moe = chip_smoke.train_config("qwen2-moe-a2.7b",
+                                  chip_smoke.MOE_TRAIN_LAYERS)
+    whisper, hyb = C.get("whisper-small"), chip_smoke.hybrid_train_config()
     assert chip_smoke.train_launches(mamba) == {"ssd_chunk": 96,
                                                 "ssd_chunk_bwd": 48}
     assert chip_smoke.train_launches(olmo) == {"flash_attention": 32,
                                                "flash_attention_bwd": 16}
-    assert chip_smoke.train_launches(chip_smoke.hybrid_config()) == {
-        "flash_attention": 2, "flash_attention_bwd": 1, "ssd_chunk": 14,
-        "ssd_chunk_bwd": 7}
-    n, b, s = 1_000_000, 8, 2048
-    assert chip_smoke._model_flops(olmo, n, b, s) == 6.0 * n * b * s + \
-        3 * 16 * chip_smoke.flash_flops(chip_smoke.attn_shape(olmo, b, s))
+    assert chip_smoke.train_launches(moe) == {"flash_attention": 8,
+                                              "flash_attention_bwd": 4}
+    assert chip_smoke.train_launches(whisper) == {"flash_attention": 72,
+                                                  "flash_attention_bwd": 36}
+    for cfg in (chip_smoke.hybrid_config(), hyb):
+        assert chip_smoke.train_launches(cfg) == {
+            "flash_attention": 2, "flash_attention_bwd": 1, "ssd_chunk": 14,
+            "ssd_chunk_bwd": 7}
+    b, s = 8, 2048
+    flash, ssd = chip_smoke.flash_flops, chip_smoke.ssd_flops
+    assert chip_smoke._model_flops(olmo, b, s) == \
+        6.0 * active_param_count(olmo) * b * s + \
+        3 * 16 * flash(chip_smoke.attn_shape(olmo, b, s))
     shape = chip_smoke.ssd_shape(mamba, b, s)
     assert shape == (8, 8, 256, 64, 64, 128)
-    assert chip_smoke._model_flops(mamba, n, b, s) == 6.0 * n * b * s + \
-        3 * 48 * chip_smoke.ssd_flops(shape)
+    assert chip_smoke._model_flops(mamba, b, s) == \
+        6.0 * param_count(mamba) * b * s + 3 * 48 * ssd(shape)
+    # the MoE: 0.97B of 2.90B parameters active (4 routed and 4 shared
+    # experts of 64)
+    n = active_param_count(moe)
+    assert abs(n / 1e9 - 0.967) < 0.001
+    assert abs(param_count(moe) / 1e9 - 2.905) < 0.001
+    assert chip_smoke._model_flops(moe, 4, s) == 6.0 * n * 4 * s + \
+        3 * 4 * flash((4, 16, 16, 2048, 2048, 128))
+    # Whisper: the encoder and the cross-attention's keys and values over
+    # 8 x 1,500 frames, the decoder over 8 x 448 tokens; the weights are
+    # param_count's and the cross-attention it leaves out
+    d = 768
+    att, ffn = 4 * d * d, 2 * d * 3072
+    enc = 12 * (att + ffn) + 12 * 2 * d * d
+    dec = 12 * (2 * att + ffn) - 12 * 2 * d * d + 2 * 51865 * d
+    assert enc + dec == param_count(whisper) + 12 * att
+    assert encdec_weights(whisper) == (enc, dec)
+    assert chip_smoke.weight_tokens(whisper, 8, 448) == \
+        enc * 8 * 1500 + dec * 8 * 448
+    mix = 12 * (flash((8, 12, 12, 1500, 1500, 64), causal=False)
+                + flash((8, 12, 12, 448, 448, 64))
+                + flash((8, 12, 12, 448, 1500, 64), causal=False))
+    assert chip_smoke._model_flops(whisper, 8, 448) == \
+        6.0 * (enc * 8 * 1500 + dec * 8 * 448) + 3 * mix
+    # the hybrid: 1.60B of 3.01B active; one attention and seven SSDs
+    assert abs(active_param_count(hyb) / 1e9 - 1.596) < 0.001
+    assert abs(param_count(hyb) / 1e9 - 3.006) < 0.001
+    assert chip_smoke._model_flops(hyb, 4, s) == \
+        6.0 * active_param_count(hyb) * 4 * s + 3 * (
+            flash((4, 32, 8, 2048, 2048, 128))
+            + 7 * ssd((4, 8, 256, 128, 64, 128)))
+
+
+@pytest.mark.parametrize("arch,layers", [("olmo-1b", None),
+                                         ("qwen2-7b", None),
+                                         ("qwen2-moe-a2.7b", None),
+                                         ("qwen2-moe-a2.7b", 4),
+                                         ("jamba-1.5-large-398b", None)])
+def test_model_flops_weights_match_the_reference(chip_smoke, arch, layers):
+    """The weights' term of ``_model_flops`` is the reference's
+    ``model_flops`` (6 N_active D) on the same config at its train cell
+    (256 x 4,096): the port's ``active_param_count`` is the reference's,
+    for a dense model its ``param_count``, for a MoE its routed top-k and
+    shared experts only."""
+    import dataclasses
+    import repro.configs as R
+    from repro.configs.base import active_param_count as ref_active
+    from repro.launch.roofline import model_flops
+    from repro_torch.configs.base import active_param_count
+    cfg = chip_smoke.train_config(arch, layers)
+    ref = R.get(arch)
+    if layers is not None:
+        ref = dataclasses.replace(ref, n_layers=layers)
+    assert active_param_count(cfg) == ref_active(ref)
+    assert 6.0 * chip_smoke.weight_tokens(cfg, 256, 4096) == \
+        model_flops(ref, "train_4k")
+
+
+FAMILY_TRAIN_SMOKE = [("moe", "qwen2-moe-a2.7b"), ("encdec", "whisper-small"),
+                      ("hybrid", "jamba-1.5-large-398b")]
+
+
+@pytest.mark.parametrize("path,arch", FAMILY_TRAIN_SMOKE)
+def test_chip_smoke_family_training_phases_rehearse_on_cpu(chip_smoke, path,
+                                                           arch):
+    """Phases 37-42 at a tiny size on the CPU (the plain versions, no
+    launches), through ``phase_family_training``: the smoke config's
+    train step (finite, every kernel call in bf16 and ``train_launches``
+    of them in one step; Whisper's frames in bf16; the MoE's and the
+    hybrid's routes recorded in the forward and the recomputation) and
+    its fp32 step held to the plain kernels with the routes replayed,
+    every kernel call held."""
+    import repro_torch.configs as C
+    cfg = C.get_smoke(arch)
+    steps, paths, cons = chip_smoke.phase_family_training(
+        "cpu", "", plan=((path, cfg, (2, 64), cfg, (2, 64)),), warmup=1,
+        steps=1)
+    step, held = steps[path], cons[f"{path}_train_consistency"]
+    zero = {n: 0 for n in chip_smoke.train_launches(cfg)}
+    assert paths == {f"{path}_train_step": zero,
+                     f"{path}_train_consistency": zero}
+    assert all(np.isfinite(x) for pair in step["metrics"] for x in pair)
+    assert step["calls"] and all(" bfloat16 " in c for c in step["calls"])
+    assert sum(int(c.rsplit(": ", 1)[1]) for c in step["calls"]) == \
+        sum(chip_smoke.train_launches(cfg).values())
+    n_moe = chip_smoke.moe_layers(cfg)
+    assert n_moe == {"moe": 4, "encdec": 0, "hybrid": 4}[path]
+    assert (step["dropped_share"] is None) == (n_moe == 0)
+    assert held["routes"] == 2 * n_moe
+    assert held["loss_rel"] <= 1e-6 and held["grad_rel"] <= 1e-5
+    assert set(held["held"]) == set(chip_smoke.train_launches(cfg))
+    if path == "encdec":
+        data = chip_smoke.train_data(cfg, 2, 64, 0)
+        assert data.cfg.enc_frames == cfg.enc_frames == 16
+        frames = chip_smoke.train_batch(cfg, data, 0, "cpu")["frames"]
+        assert frames.dtype == torch.bfloat16
+        assert tuple(frames.shape) == (2, 16, cfg.d_model)
+        fp32 = chip_smoke.train_batch(
+            dataclasses.replace(cfg, dtype="float32"), data, 0, "cpu")
+        assert fp32["frames"].dtype == torch.float32
+        assert fp32["tokens"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
+def test_chip_smoke_route_replay_under_remat(chip_smoke, arch):
+    """Under autograd with remat each MoE layer routes twice, in the
+    forward and in the backward's recomputation, in the same order in two
+    runs; replayed with ``grad`` (the gates taken anew from the logits by
+    ``moe.gates``, as ``route`` takes them) they give the recorded run's
+    loss and gradients; a route left over, or one asked for past the
+    last, fails."""
+    import repro_torch.configs as C
+    from repro_torch.models import api
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(C.get_smoke(arch), dtype="float32")
+    logits = torch.randn(2, 32, cfg.moe.n_experts,
+                         generator=torch.Generator().manual_seed(1))
+    eid, _, _, gate = M.route(logits, cfg.moe.top_k, 8)
+    assert torch.equal(M.gates(logits, eid, cfg.moe.top_k), gate)
+    params = api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(2)
+    batch = api.make_batch(cfg, gen, 2, 64)
+    routes = []
+    with chip_smoke.record_routes(routes):
+        loss, grads = chip_smoke._loss_and_grads(cfg, params, batch)
+    assert len(routes) == 2 * chip_smoke.moe_layers(cfg) == 8
+    for fwd, again in zip(routes[:4], routes[:3:-1] if arch.startswith(
+            "qwen") else routes[4:]):
+        assert all(torch.equal(x, y) for x, y in zip(fwd, again))
+    with chip_smoke.replay_routes(routes, grad=True):
+        replayed, regrads = chip_smoke._loss_and_grads(cfg, params, batch)
+    assert replayed == loss
+    assert all(torch.equal(regrads[n], g) for n, g in grads.items())
+    extra = routes + routes[-1:]
+    with pytest.raises(AssertionError, match="left over"):
+        with chip_smoke.replay_routes(extra, grad=True):
+            chip_smoke._loss_and_grads(cfg, params, batch)
+    with pytest.raises(AssertionError, match="more than 7 routes"):
+        with chip_smoke.replay_routes(routes[:-1], grad=True):
+            chip_smoke._loss_and_grads(cfg, params, batch)
 
 
 def test_ssd_bwd_bound_at_the_train_shape(chip_smoke):

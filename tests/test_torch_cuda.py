@@ -1242,3 +1242,59 @@ def test_olmo_smoke_train_step_on_card(cuda_device):
             assert flash_attention_bwd.launches - b0 == 2 * cfg.n_layers
     assert np.isfinite(losses["cuda"])
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2
+
+
+#: ((b, h, hkv, sq, sk, d), causal): the attention shapes of the MoE,
+#: encoder-decoder and hybrid train steps at batch 1 -- Whisper's encoder
+#: (1,500 frames, non-causal, a ragged last key tile) and decoder self-
+#: attention (448 tokens, causal, ragged), the reduced Jamba's GQA
+TRAIN_BWD_SHAPES = [((1, 12, 12, 1500, 1500, 64), False),
+                    ((1, 12, 12, 448, 448, 64), True),
+                    ((1, 32, 8, 2048, 2048, 128), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", TRAIN_BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_bwd_family_train_shapes_on_card(cuda_device, shape,
+                                                         causal, dtype):
+    q, k, v, do = _bwd_inputs(shape, dtype, cuda_device, seed=5)
+    _, same = _bwd_hold(q, k, v, do, causal)
+    assert same
+
+
+@pytest.fixture
+def chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke as mod
+        yield mod
+    finally:
+        sys.path.remove(root)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-small",
+                                  "jamba-1.5-large-398b"])
+def test_family_smoke_train_step_on_card(cuda_device, chip_smoke, arch):
+    """The smoke config's train step on the card through
+    ``chip_smoke.phase_train_step`` (finite loss, ``train_launches`` a
+    step, every kernel call in bf16, the routes of forward and
+    recomputation) and its fp32 step held to the plain kernels with the
+    routes replayed (``phase_train_consistency``: loss, every gradient,
+    every kernel call)."""
+    import repro_torch.configs as C
+    cfg = C.get_smoke(arch)
+    step = chip_smoke.phase_train_step(cuda_device, cfg, batch=2, seq=64,
+                                       warmup=1, steps=2)
+    assert step["launches"] == {n: 2 * c for n, c in
+                                chip_smoke.train_launches(cfg).items()}
+    cons = chip_smoke.phase_train_consistency(cuda_device, cfg,
+                                              shape=(2, 64))
+    assert cons["loss_rel"] <= chip_smoke.TRAIN_LOSS_RTOL
+    assert cons["grad_rel"] <= chip_smoke.TRAIN_GRAD_TOL
+    assert cons["routes"] == 2 * chip_smoke.moe_layers(cfg)

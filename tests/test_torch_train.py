@@ -107,7 +107,9 @@ def _opt_pair(kind: str):
 
 @pytest.mark.parametrize("arch,kind", [("olmo-1b", "adamw"),
                                        ("qwen2-moe-a2.7b", "adamw"),
-                                       ("qwen2-7b", "adafactor")])
+                                       ("qwen2-7b", "adafactor"),
+                                       ("whisper-small", "adamw"),
+                                       ("jamba-1.5-large-398b", "adamw")])
 def test_two_train_steps_match_reference(arch, kind):
     """Two ``make_train_step`` steps from one carried AdamW or Adafactor
     state (the reference's after one step of its own, so moments are
@@ -305,6 +307,28 @@ def test_recovery_restores_after_failure(tmp_path):
     final = tr.run_with_recovery(max_restarts=2)
     assert final.step == 8 and calls["n"] == 1
     assert all(np.isfinite(m["loss"]) for m in tr.metrics_log)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_trainer_feeds_frames_in_the_model_dtype(tmp_path, dtype):
+    """The trainer hands the step Whisper's frames in the model's dtype
+    (the pipeline makes them fp32; fp32 frames would run a bf16 encoder
+    in fp32), tokens and labels as the pipeline makes them; the step's
+    own intake does the same to a numpy batch."""
+    from repro_torch.configs import get_smoke
+    cfg = dataclasses.replace(get_smoke("whisper-small"), dtype=dtype)
+    tcfg = TrainerConfig(total_steps=1, checkpoint_dir=str(tmp_path),
+                         seq_len=16, global_batch=2, async_checkpoint=False)
+    tr = Trainer(cfg, tcfg, device="cpu")
+    raw = tr.data.global_batch_at(0)
+    assert raw["frames"].dtype == np.float32
+    for got in (tr._device_batch(raw), TST.model_batch(cfg, raw, "cpu")):
+        assert got["frames"].dtype == getattr(torch, dtype)
+        assert tuple(got["frames"].shape) == (2, cfg.enc_frames,
+                                              cfg.d_model)
+        assert torch.equal(got["frames"], torch.from_numpy(
+            raw["frames"]).to(getattr(torch, dtype)))
+        assert torch.equal(got["tokens"], torch.from_numpy(raw["tokens"]))
 
 
 def test_kernel_error_propagates_without_a_restart(tmp_path, monkeypatch):
