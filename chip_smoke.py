@@ -149,10 +149,12 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     step's loss and gradients with the kernels against
                     the plain attention's; every forward and backward
                     kernel call held to its plain version;
-33. trainer      -- ``launch/train.py`` at full width and 2 layers, 6
+33. trainer      -- ``launch/train.py`` at full width and 2 layers
+                    (``--dp 1 --tp 1``: a 1 x 1 mesh over the card), 6
                     steps with a checkpoint every 3, then a fresh
-                    ``Trainer`` resumed from step 3 to the same step-6
-                    loss;
+                    ``Trainer`` on ``make_mesh(1, 1)`` resumed from step
+                    3 to the same step-6 loss, every parameter and state
+                    tensor whole on the card;
 34. ssd_grad     -- the ``ssd_chunk`` backward kernel against its plain
                     version at Mamba2-1.3B's train shape, the reduced
                     Jamba's, two of the reference's test shapes (one
@@ -180,7 +182,15 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     parameters (Whisper's encoder over its frames); each
                     kernel call's dtype logged; the MoE's dropped share;
                     the fp32 holds replay the routes of the forward and
-                    the recomputation.
+                    the recomputation;
+43. roofline     -- host only: each train step and bf16 prefill this run
+                    timed, dry-run on ``meta`` under ``h100_1x1``
+                    (``launch/dryrun.step_costs``): its compute and
+                    memory terms on the card's peaks
+                    (``launch/roofline.peaks_for``), the dominant one,
+                    each term over the measured seconds, the counted
+                    operations over the model's; no step may beat its
+                    compute term.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -212,8 +222,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.configs as TC  # noqa: E402
-from repro_torch.configs.base import (active_param_count,  # noqa: E402
-                                      encdec_weights)
+from repro_torch.configs.base import (ShapeSpec,  # noqa: E402
+                                      active_param_count, encdec_weights)
+from repro_torch.core.metrics import roofline  # noqa: E402
 from repro_torch.accelerators import (DEFAULT_PARAMS, REGISTRY,  # noqa: E402
                                       simulate)
 from repro_torch.accelerators.zoo import ZOO  # noqa: E402
@@ -258,6 +269,9 @@ from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step, make_train_step,
                                       model_batch)
 from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.roofline import peaks_for  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -277,13 +291,24 @@ FA_MODULE = sys.modules["repro_torch.kernels.flash_attention"]
 BWD_MODULE = sys.modules["repro_torch.kernels.flash_attention_bwd"]
 #: the module whose ``ssd_chunk_bwd`` ``SsdChunk.backward`` calls
 SSD_BWD_MODULE = sys.modules["repro_torch.kernels.ssd_chunk_bwd"]
+#: the kernels' modules, whose ``flops`` and ``nbytes`` count the work a
+#: bound is taken over (the dry run reads the same counts)
+SSD_MODULE = sys.modules["repro_torch.kernels.ssd_chunk"]
+BSMM_MODULE = sys.modules["repro_torch.kernels.block_sparse_matmul"]
+MERGE_MODULES = {"merge_path": sys.modules["repro_torch.kernels.merge"],
+                 "multi_merge_ranks":
+                     sys.modules["repro_torch.kernels.multi_merge"]}
 
-#: H100 SXM device-memory rate and dense peaks (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12,      # tensor cores, bf16
-              torch.float32: 67e12}        # CUDA cores, fp32
+#: the card every bound is taken against: the H100 SXM's row of the
+#: roofline's peaks table (NVIDIA data sheet)
+BOUND_CARD = "NVIDIA H100 80GB HBM3"
+_H100 = peaks_for(BOUND_CARD)
+#: its device-memory rate and dense peaks
+HBM_BYTES_PER_S = _H100.hbm_bytes_per_s
+PEAK_FLOPS = {torch.bfloat16: _H100.bf16_flops,     # tensor cores, bf16
+              torch.float32: _H100.fp32_flops}      # CUDA cores, fp32
 #: TF32 tensor cores, dense
-TF32_FLOPS = 495e12
+TF32_FLOPS = _H100.tf32_flops
 
 
 def route_ms(flops: int, dtype, cuda_cores: bool = False
@@ -1106,9 +1131,7 @@ def merge_bound_ms(name: str, sizes: Tuple[int, ...]) -> float:
     """Bytes bound (ms) of one merge launch: ``merge_path`` reads 8 bytes
     a key and writes 8 + 1 (merged key, source flag); ``multi_merge_ranks``
     reads 8 bytes a key and 8 an offset and writes an 8-byte rank."""
-    n = sum(sizes)
-    nbytes = 17 * n if name == "merge_path" else 16 * n + 8 * (len(sizes) + 1)
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return MERGE_MODULES[name].nbytes(sizes) / HBM_BYTES_PER_S * 1e3
 
 
 def phase_merge_slack(device, calls, reps: int = 5, seed: int = 7,
@@ -1887,10 +1910,8 @@ TIMED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def ssd_flops(shape) -> int:
     """Operations of the causal half (j <= i) of G once per (b, c) and of
-    Y per head."""
-    B, nc, l, H, P, N = shape
-    tri = l * (l + 1) // 2
-    return 2 * B * nc * tri * N + 2 * B * nc * H * tri * P
+    Y per head (``ssd_chunk.flops``)."""
+    return SSD_MODULE.flops(shape)
 
 
 def ssd_bound(shape, dtype, cuda_cores: bool = False
@@ -1899,11 +1920,7 @@ def ssd_bound(shape, dtype, cuda_cores: bool = False
     sets it and the route: x, a, b and c read once and y (fp32) written
     once, against ``ssd_flops`` on the route of the input dtype
     (``route_ms``)."""
-    B, nc, l, H, P, N = shape
-    es = torch.empty(0, dtype=dtype).element_size()
-    nbytes = es * (B * nc * l * H * P + 2 * B * nc * l * N) \
-        + 4 * B * H * nc * l + 4 * B * nc * l * H * P
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = SSD_MODULE.nbytes(shape, dtype) / HBM_BYTES_PER_S * 1e3
     t_ops, route = route_ms(ssd_flops(shape), dtype, cuda_cores)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), route
@@ -2391,14 +2408,8 @@ def attn_shape(cfg, batch: int, seq: int) -> Tuple[int, ...]:
 
 def flash_flops(shape, causal: bool = True) -> int:
     """Operations of QK^T and PV over the (query, key) pairs the mask
-    keeps."""
-    b, h, hkv, sq, sk, d = shape
-    if causal:      # query i keeps keys 0..min(i, sk - 1)
-        n = min(sq, sk)
-        pairs = n * (n + 1) // 2 + max(sq - sk, 0) * sk
-    else:
-        pairs = sq * sk
-    return 4 * b * h * d * pairs
+    keeps (``flash_attention.flops``)."""
+    return FA_MODULE.flops(shape, causal)
 
 
 def flash_bound(shape, dtype, causal: bool = True,
@@ -2407,10 +2418,7 @@ def flash_bound(shape, dtype, causal: bool = True,
     what sets it and the route: q, k, v read once and o written once,
     against ``flash_flops`` on the route of the input dtype
     (``route_ms``)."""
-    b, h, hkv, sq, sk, d = shape
-    es = torch.empty(0, dtype=dtype).element_size()
-    nbytes = es * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = FA_MODULE.nbytes(shape, dtype) / HBM_BYTES_PER_S * 1e3
     t_ops, route = route_ms(flash_flops(shape, causal), dtype,
                             cuda_cores)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -2564,11 +2572,8 @@ def bsmm_bound(n_tiles: int, bm: int, bk: int, K: int, N: int, m: int,
     an fp32 operand takes 3xTF32 (two TF32 passes when the other is
     bf16, which TF32 holds exactly) at the TF32 peak."""
     b_dtype = a_dtype if b_dtype is None else b_dtype
-    es_a = torch.empty(0, dtype=a_dtype).element_size()
-    es_b = torch.empty(0, dtype=b_dtype).element_size()
-    nbytes = es_a * n_tiles * bm * bk + es_b * K * N + 8 * n_tiles \
-        + 4 * m * N
-    flops = 2 * n_tiles * bm * bk * N
+    nbytes = BSMM_MODULE.nbytes(n_tiles, bm, bk, K, N, m, a_dtype, b_dtype)
+    flops = BSMM_MODULE.flops(n_tiles, bm, bk, N)
     fp32 = (a_dtype == torch.float32) + (b_dtype == torch.float32)
     if fp32 == 0:
         t_ops, route = flops / PEAK_FLOPS[torch.bfloat16], "bf16 tensor cores"
@@ -2725,7 +2730,8 @@ def family_plan():
 
 
 def phase_families(device, card: str, plan=None, batch: int = PREFILL_BATCH,
-                   dispatch_shape=MOE_DISPATCH_SHAPE
+                   dispatch_shape=MOE_DISPATCH_SHAPE,
+                   measured: Optional[Dict[str, float]] = None
                    ) -> Tuple[Dict[str, Dict[str, int]], Dict[str, Dict]]:
     """Phases 20-29 (``family_plan``), one model at a time, the cache
     emptied after each phase: prefill, consistency and serve, and for
@@ -2733,7 +2739,8 @@ def phase_families(device, card: str, plan=None, batch: int = PREFILL_BATCH,
     path's kernel launches (the bf16 prefill, ``<path>_prefill``; the
     fp32 consistency prefill, ``<path>_consistency``; Whisper's fp32
     decode steps, ``<path>_consistency_decode``) and each consistency
-    path's ``phase_consistency`` result."""
+    path's ``phase_consistency`` result.  ``measured`` gets each bf16
+    prefill's seconds with the kernels, as ``<path>_prefill``."""
     paths, results = {}, {}
     for path, cfg, seq, cons, cons_seq in plan or family_plan():
         phases = [("prefill", phase_prefill, (cfg, batch, seq)),
@@ -2749,6 +2756,8 @@ def phase_families(device, card: str, plan=None, batch: int = PREFILL_BATCH,
                          card=card)
             if name == "prefill":
                 paths[f"{path}_prefill"] = out["launches"]
+                if measured is not None:
+                    measured[f"{path}_prefill"] = out["kernel_s"]
             if name == "consistency":
                 results[f"{path}_consistency"] = out
                 paths[f"{path}_consistency"] = out["launches"]
@@ -2859,10 +2868,8 @@ def ssd_grad_cases():
 def ssd_bwd_flops(shape) -> Tuple[int, int]:
     """Operations of the backward's products over the causal halves:
     (those once per (b, c): G = C B^T, dC = dG B, dB = dG^T C; those per
-    head: dW = dY X^T, dX = W^T dY)."""
-    B, nc, l, H, P, N = shape
-    tri = l * (l + 1) // 2
-    return 3 * 2 * B * nc * tri * N, 2 * 2 * B * nc * H * tri * P
+    head: dW = dY X^T, dX = W^T dY) (``ssd_chunk_bwd.flops_by_product``)."""
+    return SSD_BWD_MODULE.flops_by_product(shape)
 
 
 def ssd_bwd_bound(shape, dtype) -> Tuple[float, str, str]:
@@ -2875,11 +2882,7 @@ def ssd_bwd_bound(shape, dtype) -> Tuple[float, str, str]:
     bf16 peak, the fp32 operand split three ways into bf16 as
     ``csrc/ssd_chunk.cu`` splits S (330 TFLOP/s, faster than 2xTF32's
     247); dX 3xTF32 (W and dY both fp32)."""
-    B, nc, l, H, P, N = shape
-    es = torch.empty(0, dtype=dtype).element_size()
-    xs, bcs, as_ = B * nc * l * H * P, B * nc * l * N, B * H * nc * l
-    nbytes = es * (2 * xs + 4 * bcs) + 4 * xs + 2 * 4 * as_
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = SSD_BWD_MODULE.nbytes(shape, dtype) / HBM_BYTES_PER_S * 1e3
     per_cell, per_head = ssd_bwd_flops(shape)
     if dtype == torch.bfloat16:
         g = per_cell // 3
@@ -3057,8 +3060,9 @@ def phase_ssd_grad(device, cases=None, reps: int = 10, seed: int = 12,
 
 def flash_bwd_flops(shape, causal: bool = True) -> int:
     """Operations of the backward's five products (S, dP, dV, dK, dQ;
-    the forward has two) over the pairs the mask keeps."""
-    return flash_flops(shape, causal) * 5 // 2
+    the forward has two) over the pairs the mask keeps
+    (``flash_attention_bwd.flops``)."""
+    return BWD_MODULE.flops(shape, causal)
 
 
 def flash_bwd_bound(shape, dtype, causal: bool = True
@@ -3066,11 +3070,7 @@ def flash_bwd_bound(shape, dtype, causal: bool = True
     """The least time (ms) of one ``flash_attention_bwd`` call on an
     H100: q, k, v, o, do and lse read once, dq, dk, dv written once,
     against ``flash_bwd_flops`` on the route of the dtype."""
-    b, h, hkv, sq, sk, d = shape
-    es = torch.empty(0, dtype=dtype).element_size()
-    nbytes = es * (4 * b * h * sq * d + 4 * b * hkv * sk * d) + \
-        4 * b * h * sq
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = BWD_MODULE.nbytes(shape, dtype) / HBM_BYTES_PER_S * 1e3
     t_ops, route = route_ms(flash_bwd_flops(shape, causal), dtype)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), route
@@ -3595,30 +3595,42 @@ def phase_trainer(device, arch: str = TRAIN_ARCH,
     """``launch/train.py``'s ``main`` on ``arch`` at full width cut to
     ``layers`` layers, ``steps`` steps with a checkpoint every
     ``every`` (``smoke``: the smoke config, for a CPU rehearsal), in a
-    temporary directory removed afterwards; then a fresh
-    ``Trainer`` restores the checkpoint at ``every`` and trains to
-    ``steps``.  The resumed last loss within rel 1e-4 of the
-    uninterrupted one (the reference's property; whether it is the same
-    bits is logged).  Checkpoint seconds are logged apart from step
-    seconds.  Returns the launches of both runs and the losses."""
+    temporary directory removed afterwards, through its 1 x 1 mesh
+    (``--dp 1 --tp 1``); then a fresh ``Trainer`` on ``make_mesh(1, 1)``
+    over ``device`` restores the checkpoint at ``every`` and trains to
+    ``steps``.  Both trainers' meshes 1 x 1 over that one device, every
+    parameter and optimizer-state tensor whole on it; the resumed last
+    loss within rel 1e-4 of the uninterrupted one (the reference's
+    property; whether it is the same bits is logged).  Checkpoint
+    seconds are logged apart from step seconds.  Returns the launches of
+    both runs and the losses."""
     device = torch.device(device)
+    mesh = make_mesh(1, 1, device=device)
     work = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
         for k in MODEL_KERNELS:
             k.launches = 0
         args = ["--arch", arch, "--layers", str(layers), "--steps",
                 str(steps), "--ckpt-every", str(every), "--log-every", "1",
-                "--ckpt-dir", work, "--device", str(device)] + \
-            (["--smoke"] if smoke else [])
+                "--ckpt-dir", work, "--device", str(device), "--dp", "1",
+                "--tp", "1"] + (["--smoke"] if smoke else [])
         t0 = time.perf_counter()
         first = train_main(args)
         first_s = time.perf_counter() - t0
         resumed = Trainer(first.cfg, dataclasses.replace(first.tcfg),
-                          device=device)
+                          mesh=mesh)
         t0 = time.perf_counter()
         state = resumed.train(state=resumed.restore_or_init(step=every))
         _sync(device)
         resumed_s = time.perf_counter() - t0
+        for tr in (first, resumed):
+            if tr.mesh.shape != {"data": 1, "model": 1} or \
+                    tr.mesh.devices != mesh.devices:
+                raise AssertionError(f"trainer: mesh {tr.mesh.shape} over "
+                                     f"{tr.mesh.devices}, want 1 x 1 over "
+                                     f"{mesh.devices}")
+        placed = assert_whole_on(mesh.devices[0], state.params,
+                                 state.opt_state)
         launches = {k.__name__: k.launches for k in MODEL_KERNELS
                     if k.__name__ in train_launches(first.cfg)}
         want_loss = first.metrics_log[-1]["loss"]
@@ -3639,8 +3651,9 @@ def phase_trainer(device, arch: str = TRAIN_ARCH,
             f" s (loop held {[round(x, 3) for x in first.save_seconds]} s); "
             f"resumed from step {every} in a fresh Trainer: {resumed_s:.2f} s"
             f", step-{steps} loss {got['loss']!r} against {want_loss!r} "
-            f"uninterrupted: bit-equal {got['loss'] == want_loss}; launches "
-            f"{launches}")
+            f"uninterrupted: bit-equal {got['loss'] == want_loss}; mesh "
+            f"{mesh.shape} over {mesh.devices[0]}, {placed} parameter and "
+            f"state tensors whole on it; launches {launches}")
         return {"launches": launches, "loss": want_loss,
                 "resumed_loss": got["loss"],
                 "bit_equal": got["loss"] == want_loss,
@@ -3648,6 +3661,30 @@ def phase_trainer(device, arch: str = TRAIN_ARCH,
                 "step_s": step_s}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def assert_whole_on(device: torch.device, params, opt_state) -> int:
+    """Fails unless every parameter of ``params`` and every tensor of
+    ``opt_state`` lies on ``device`` (a 1 x 1 mesh's one device), each
+    per-parameter state tensor in its parameter's full shape (Adafactor's
+    factored moments in theirs); returns how many tensors it checked."""
+    shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    found = [(n, p, shapes[n]) for n, p in params.named_parameters()]
+    for key, sub in opt_state.items():
+        if not isinstance(sub, dict):                     # the step count
+            found.append((key, sub, tuple(sub.shape)))
+            continue
+        for n, t in sub.items():
+            if isinstance(t, dict):                       # factored moments
+                found += [(f"{key}.{n}.{k}", v, tuple(v.shape))
+                          for k, v in t.items()]
+            else:
+                found.append((f"{key}.{n}", t, shapes[n]))
+    for name, t, whole in found:
+        if t.device != device or tuple(t.shape) != whole:
+            raise AssertionError(f"trainer: {name} {tuple(t.shape)} on "
+                                 f"{t.device}, want {whole} on {device}")
+    return len(found)
 
 
 def train_config(arch: str = TRAIN_ARCH, layers: Optional[int] = None):
@@ -3773,6 +3810,88 @@ def phase_training(device, card: str) -> Tuple[List[Dict], Dict[str, Dict],
                                    **f_cons}
 
 
+# ---------------------------------------------------------------------- #
+# 43: the roofline of the timed steps (host only)
+# ---------------------------------------------------------------------- #
+def roofline_plan():
+    """The steps this script times, as the dry run walks them: (the
+    phase that times it, config, shape).  The train steps of phases
+    train_step, mamba2_train_step and 37-42; the bf16 prefills of the
+    main, dense and family paths."""
+    out = [("train_step", train_config(),
+            ShapeSpec("train_step", TRAIN_SEQ, TRAIN_BATCH, "train")),
+           ("mamba2_train_step", train_config(MODEL_ARCH),
+            ShapeSpec("mamba2_train_step", TRAIN_SEQ, TRAIN_BATCH,
+                      "train"))]
+    out += [(f"{path}_train_step", cfg, ShapeSpec(f"{path}_train_step", s,
+                                                  b, "train"))
+            for path, cfg, (b, s), _, _ in family_train_plan()]
+    out += [("prefill", TC.get(MODEL_ARCH),
+             ShapeSpec("prefill", PREFILL_SEQ, PREFILL_BATCH, "prefill")),
+            ("dense_prefill", TC.get(DENSE_ARCH),
+             ShapeSpec("dense_prefill", PREFILL_SEQ, PREFILL_BATCH,
+                       "prefill"))]
+    out += [(f"{path}_prefill", cfg, ShapeSpec(f"{path}_prefill", seq,
+                                               PREFILL_BATCH, "prefill"))
+            for path, cfg, seq, _, _ in family_plan()]
+    return out
+
+
+def phase_roofline(measured: Dict[str, float], card: str, plan=None,
+                   peaks=None) -> Dict[str, Dict]:
+    """Each step of ``plan`` (``roofline_plan``) dry-run on ``meta`` under
+    ``h100_1x1`` (``launch/dryrun.step_costs``: aten's products and bytes,
+    the kernels' own counts, from the 1- and 2-unit probes; nothing runs
+    on the card), its terms on
+    ``peaks`` (``peaks_for(card)``) beside the seconds its phase measured
+    (``measured``): the compute and memory terms, the dominant one,
+    each term over the measured seconds, and the counted operations over
+    ``_model_flops`` (a prefill's: a third of it, 2 N D and the mixers
+    once).  Fails if a step measured faster than its compute term (no
+    count can be beaten) or a walk fails; the memory term's share is
+    reported, not held (an eager op may find its operands in L2)."""
+    peaks = peaks or peaks_for(card)
+    mesh = make_mesh(1, 1, device="meta")
+    out, fast = {}, []
+    for name, cfg, shape in plan or roofline_plan():
+        t0 = time.perf_counter()
+        cost = dryrun.step_costs(cfg, shape, mesh)
+        walk_s = time.perf_counter() - t0
+        terms = roofline(cost["flops"], cost["hbm_bytes"],
+                         cost["collective_wire_bytes"], 1,
+                         peak_flops=peaks.bf16_flops,
+                         hbm_gbs=peaks.hbm_bytes_per_s,
+                         link_gbs=peaks.link_bytes_per_s)
+        model = _model_flops(cfg, shape.global_batch, shape.seq_len)
+        if shape.kind != "train":
+            model /= 3
+        sec = measured[name]
+        rec = {**cost, "compute_s": terms.compute_s,
+               "memory_s": terms.memory_s,
+               "dominant": terms.dominant, "measured_s": sec,
+               "compute_share": terms.compute_s / sec,
+               "memory_share": terms.memory_s / sec,
+               "counted_over_model": cost["flops"] / model,
+               "walk_s": walk_s}
+        out[name] = rec
+        if sec < terms.compute_s:
+            fast.append(name)
+        log(f"roofline {name} {cfg.name} {shape.global_batch}x"
+            f"{shape.seq_len} {shape.kind} on {card}: counted "
+            f"{cost['flops']:.6g} operations "
+            f"({rec['counted_over_model']:.4f} of the model's {model:.6g}; "
+            f"kernels {cost['kernel_flops']}), {cost['hbm_bytes']:.6g} "
+            f"bytes; compute term {terms.compute_s:.6g}"
+            f" s, memory term {terms.memory_s:.6g} s: {terms.dominant}-"
+            f"bound; measured {sec:.6g} s: compute {rec['compute_share']:.4f}"
+            f" and memory {rec['memory_share']:.4f} of it; walk "
+            f"{walk_s:.2f} s")
+    if fast:
+        raise AssertionError(f"roofline: {fast} measured faster than their "
+                             f"compute terms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3815,6 +3934,7 @@ def main() -> int:
     ssd_rec = _timed("ssd_kernel", smi, phase_ssd_kernel, "cuda", card=smi)
     prefill = _timed("prefill", smi, phase_prefill, "cuda", cfg,
                      PREFILL_BATCH, PREFILL_SEQ, card=smi)
+    measured = {"prefill": prefill["kernel_s"]}
     ssd_rec["launches"] = prefill["launches"]["ssd_chunk"]
     kernels.append(ssd_rec)
     cons = {"consistency": _timed("consistency", smi, phase_consistency,
@@ -3831,6 +3951,7 @@ def main() -> int:
     prefill = _timed("dense_prefill", smi, phase_prefill, "cuda", dense,
                      PREFILL_BATCH, PREFILL_SEQ, card=smi)
     flash_rec["launches"] = prefill["launches"]["flash_attention"]
+    measured["dense_prefill"] = prefill["kernel_s"]
     kernels += [flash_rec, bsmm_rec]
     torch.cuda.empty_cache()
     cons["dense_consistency"] = _timed(
@@ -3846,11 +3967,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"hybrid: {hybrid_config().name} = {HYBRID_ARCH} with "
         f"{HYBRID_REDUCTION}")
-    paths, family_cons = phase_families("cuda", smi)
+    paths, family_cons = phase_families("cuda", smi, measured=measured)
     cons.update(family_cons)
     paths.update({p: cons[p]["launches"]
                   for p in ("consistency", "dense_consistency")})
     bwd_recs, train_paths, train_cons = phase_training("cuda", smi)
+    flash_bwd_rec, ssd_bwd_rec = bwd_recs
+    measured["train_step"] = flash_bwd_rec["train_step"]["s_per_step"]
+    measured["mamba2_train_step"] = ssd_bwd_rec["train_step"]["s_per_step"]
+    for path, _, _, _, _ in family_train_plan():
+        measured[f"{path}_train_step"] = \
+            flash_bwd_rec[f"{path}_train_step"]["s_per_step"]
+    _timed("roofline", smi, phase_roofline, measured, name)
     kernels += bwd_recs
     paths.update(train_paths)
     cons.update(train_cons)

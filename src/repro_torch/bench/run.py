@@ -1,8 +1,9 @@
 """Benchmark harness of the port -- one module per paper table/figure
-(``benchmarks/run.py``, the reference's harness, without its roofline).
+(``benchmarks/run.py``, the reference's harness).
 
     python -m repro_torch.bench.run [--only table1,fig9,fig10,fig11,fig13,
-                                            table2,kernels,backend,dse]
+                                            table2,kernels,roofline,
+                                            backend,dse]
                                     [--backend python|vector|analytic|both]
                                     [--smoke] [--device cpu]
                                     [--explain-fallbacks] [--trace OUT]
@@ -18,7 +19,8 @@ fig11) run on the interpreter, on the host, as the reference's do (the
 path-exact residency model needs it; see ``fig9_memory_traffic``);
 fig13, table2, dse and backend run the vector path with its seams on the
 CUDA device unless ``--device`` names another, and kernels runs the hand
-kernels there.  The run needs a card unless ``--device`` is given.
+kernels there; roofline reads the dry run's records (``launch/dryrun.py``)
+on the host.  The run needs a card unless ``--device`` is given.
 
 ``--backend`` selects the execution engine of the benchmarks that thread
 it through: backend (vector by default; python, analytic and both, which
@@ -229,13 +231,18 @@ def _kernels(smoke: bool, backend: str, device) -> Rows:
     return [(r.name, r.us_per_call, r.err) for r in rows]
 
 
-#: the benchmarks the port has, in the reference's order; its roofline
-#: waits for the port's model roofline
+def _roofline(smoke: bool, backend: str, device) -> Rows:
+    from repro_torch.bench import roofline_lm
+    return roofline_lm.run()
+
+
+#: the benchmarks the port has, in the reference's order
 BENCHES: Dict[str, Callable[[bool, str, object], Rows]] = {
     **{name: _study(name) for name in STUDY_CLAIMS},
     "fig13": _fig13,
     "table2": _table2,
     "kernels": _kernels,
+    "roofline": _roofline,
     "backend": _backend,
     "dse": _dse,
 }

@@ -153,3 +153,38 @@ def evaluate(spec: AcceleratorSpec, plans: Dict[str, EinsumPlan],
         energy_breakdown_pj=breakdown,
         action_counts=acts,
     )
+
+
+# ---------------------------------------------------------------------- #
+# shared three-term bottleneck roofline (also used by launch/roofline)
+# ---------------------------------------------------------------------- #
+@dataclass
+class RooflineTerms:
+    """The same bottleneck-analysis structure applied to a device:
+    compute / memory / collective, seconds each; max dominates."""
+    compute_s: float
+    memory_s: float
+    collective_s: float
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def seconds(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+def roofline(flops: float, bytes_hbm: float, bytes_collective: float,
+             chips: int, *, peak_flops: float, hbm_gbs: float,
+             link_gbs: float) -> RooflineTerms:
+    """The three terms on ``chips`` devices of the given peaks (FLOP/s,
+    memory and link bytes/s a device): no default device, so a caller
+    names the card it means (``launch/roofline.peaks_for``)."""
+    return RooflineTerms(
+        compute_s=flops / (chips * peak_flops),
+        memory_s=bytes_hbm / (chips * hbm_gbs),
+        collective_s=bytes_collective / (chips * link_gbs),
+    )

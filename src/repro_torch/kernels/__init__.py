@@ -18,8 +18,12 @@ Each kernel has its source in ``csrc/``, is built at first use
 
 A wrapper launches its kernel for tensors on a CUDA device, takes the
 plain version for tensors on the CPU, and counts its launches on its
-``launches`` attribute.  ``backends.py`` lowers the vector engine's five
-seams onto the first three; ``models/ssm.py`` runs the fourth (and,
+``launches`` attribute.  The model kernels' wrappers (the last five)
+also take tensors on the ``meta`` device: they return empty outputs and
+report the call's operations and bytes (their module's ``flops`` and
+``nbytes``) to a dry run's counter (``meta.py``).
+``backends.py`` lowers the vector engine's five seams onto the first
+three; ``models/ssm.py`` runs the fourth (and,
 under autograd, its gradient), ``models/layers.py`` the flash attention
 (and, under autograd, its gradient), and
 ``bench/kernels_bench.py`` the six forward kernels.

@@ -9,7 +9,9 @@ The CUDA kernel (``csrc/block_sparse_matmul.cu``) replaces the
 reference's Pallas kernel ``_bsmm_kernel``.  ``block_sparse_matmul``
 launches it for tensors on a CUDA device and takes the plain version,
 ``block_sparse_matmul_plain``, only for tensors on the CPU.  Both
-accumulate in float32 and return float32.
+accumulate in float32 and return float32.  On the ``meta`` device it
+runs nothing: it returns an empty Z and reports ``flops`` and ``nbytes``
+of the call (``kernels/meta.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, meta
 
 #: repro_block_sparse_matmul(a, rowptr, cols, b, z, n_tile_rows, M, K, N,
 #: bm, bk, tm, tn, a_dtype, b_dtype, stream)
@@ -59,6 +61,24 @@ def compact_tiles(a: np.ndarray, bm: int = 128, bk: int = 128
             cols.append(0)
     return (np.stack(tiles), np.asarray(rows, np.int32),
             np.asarray(cols, np.int32))
+
+
+def flops(n_tiles: int, bm: int, bk: int, N: int) -> int:
+    """Operations of ``n_tiles`` nonzero (bm x bk) tiles, each times its
+    (bk x N) block of B."""
+    return 2 * n_tiles * bm * bk * N
+
+
+def nbytes(n_tiles: int, bm: int, bk: int, K: int, N: int, m: int,
+           a_dtype, b_dtype=None) -> int:
+    """Bytes a call must move: the tiles (in ``a_dtype``), their int64
+    coordinates and B [K, N] (in ``b_dtype``, ``a_dtype`` by default)
+    read once, Z [m, N] (fp32) written once."""
+    b_dtype = a_dtype if b_dtype is None else b_dtype
+    es_a = torch.empty(0, dtype=a_dtype).element_size()
+    es_b = torch.empty(0, dtype=b_dtype).element_size()
+    return es_a * n_tiles * bm * bk + es_b * K * N + 8 * n_tiles \
+        + 4 * m * N
 
 
 def _check(a_tiles: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
@@ -108,7 +128,8 @@ def block_sparse_matmul(a_tiles: torch.Tensor, rows: torch.Tensor,
                         bn: int = DEFAULT_BN) -> torch.Tensor:
     """``block_sparse_matmul_plain``'s function; on a CUDA device, one
     launch of the hand-written kernel (counted on
-    ``block_sparse_matmul.launches``).
+    ``block_sparse_matmul.launches``); on the meta device, an empty Z and
+    the call's count.
 
     a_tiles: [T, bm, bk] tiles sorted by (row, col), as ``compact_tiles``
     gives them; rows, cols: [T] tile indices; b: [K, N]; ``m`` the rows
@@ -121,6 +142,12 @@ def block_sparse_matmul(a_tiles: torch.Tensor, rows: torch.Tensor,
     _check(a_tiles, rows, cols, b, m)
     if a_tiles.device.type == "cpu":
         return block_sparse_matmul_plain(a_tiles, rows, cols, b, m)
+    T, bm, bk = a_tiles.shape
+    K, N = b.shape
+    if a_tiles.device.type == "meta":
+        meta.record("block_sparse_matmul", flops(T, bm, bk, N),
+                    nbytes(T, bm, bk, K, N, m, a_tiles.dtype, b.dtype))
+        return torch.empty((m, N), dtype=torch.float32, device=b.device)
     if a_tiles.device.type != "cuda":
         raise ValueError(f"block_sparse_matmul: no kernel for device "
                          f"{a_tiles.device}")

@@ -24,7 +24,9 @@ its backward launches the hand-written backward kernel
 (``flash_attention_bwd``).  Without autograd nothing more is written.
 On the CPU, ``flash_attention`` is the plain version, and under autograd
 ``FlashAttention`` on the plain versions of both kernels, so the CPU
-tests take the card's gradient path with the plain versions in it.
+tests take the card's gradient path with the plain versions in it.  On
+the ``meta`` device (a dry run, ``kernels/meta.py``) it runs nothing: it
+returns empty outputs and reports ``flops`` and ``nbytes`` of the call.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, meta
 from .ref import attention_ref
 
 #: repro_flash_attention(q, k, v, o, lse, B, H, Hkv, sq, sk, d, causal,
@@ -101,6 +103,44 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 
+def flops(shape, causal: bool = True) -> int:
+    """Operations of QK^T and PV over the (query, key) pairs the mask
+    keeps, for a call of ``shape`` (b, h, hkv, sq, sk, d)."""
+    b, h, hkv, sq, sk, d = shape
+    if causal:      # query i keeps keys 0..min(i, sk - 1)
+        n = min(sq, sk)
+        pairs = n * (n + 1) // 2 + max(sq - sk, 0) * sk
+    else:
+        pairs = sq * sk
+    return 4 * b * h * d * pairs
+
+
+def nbytes(shape, dtype, with_lse: bool = False) -> int:
+    """Bytes a call of ``shape`` must move: q, k and v read once and o
+    written once in ``dtype`` (and, ``with_lse``, the rows' fp32
+    log-sum-exp written once)."""
+    b, h, hkv, sq, sk, d = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    return es * (2 * b * h * sq * d + 2 * b * hkv * sk * d) + \
+        (4 * b * h * sq if with_lse else 0)
+
+
+def _meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+          with_lse: bool):
+    """The meta route: (o, lse or None) empty, the call's operations and
+    bytes reported (``kernels/meta.py``); outside the kernel's head dims
+    it raises, as a launch does."""
+    b, h, sq, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    shape = (b, h, k.shape[1], sq, k.shape[2], d)
+    meta.record("flash_attention", flops(shape, causal),
+                nbytes(shape, q.dtype, with_lse))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    return torch.empty_like(q), lse
+
+
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` as it is when the kernel can read it in place (the last
     dimension contiguous; base and strides on 16 bytes, as TMA needs in
@@ -152,6 +192,8 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             o = flash_attention_plain(q, k, v, causal)
             lse = flash_attention_lse_plain(q, k, v, causal)
+        elif q.device.type == "meta":
+            o, lse = _meta(q, k, v, causal, with_lse=True)
         else:
             o, lse, (q, k, v) = _launch(q, k, v, causal, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -170,18 +212,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """``flash_attention_plain``'s function; on a CUDA device, one
     launch of the hand-written kernel (counted on
-    ``flash_attention.launches``).  When an input requires a gradient,
-    through ``FlashAttention``, on the CPU too.  The output has ``q``'s
-    layout, so a [b, h, s, d] view of a [b, s, h, d] tensor comes back as
-    one."""
+    ``flash_attention.launches``); on the meta device, ``_meta``.  When an
+    input requires a gradient, through ``FlashAttention``, on the CPU
+    too.  The output has ``q``'s layout, so a [b, h, s, d] view of a
+    [b, s, h, d] tensor comes back as one."""
     _check(q, k, v)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
+    if q.device.type == "meta":
+        return _meta(q, k, v, causal, with_lse=False)[0]
     return _launch(q, k, v, causal, with_lse=False)[0]
 
 

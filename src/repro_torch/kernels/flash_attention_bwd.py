@@ -16,7 +16,9 @@ Both recompute the softmax weights from the forward's log-sum-exp
 (``flash_attention_lse_plain``'s function).  The kernel is held to the
 plain version by ``bwd_err``: each gradient element's error over the
 summed magnitude of its terms (``flash_attention_bwd_scale``), within
-``ATOL``.
+``ATOL``.  On the ``meta`` device it runs nothing: it returns empty
+gradients and reports ``flops`` and ``nbytes`` of the call
+(``kernels/meta.py``).
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ from typing import Tuple
 
 import torch
 
-from . import build
+from . import build, meta
 from .flash_attention import _DTYPES, HEAD_DIMS, _check, _kernel_layout
+from .flash_attention import flops as _forward_flops
 
 #: repro_flash_attention_bwd(q, k, v, o, lse, do, dq, dk, dv, dsum, B, H,
 #: Hkv, sq, sk, d, causal, scale, dtype, strides, stream)
@@ -52,6 +55,22 @@ ROW_PAD = 128
 #: scale, so that a product that underflows in one version and not the
 #: other (a term of a few 1e-38) is no error
 SCALE_FLOOR = 1e-6
+
+
+def flops(shape, causal: bool = True) -> int:
+    """Operations of the backward's five products (S, dP, dV, dK, dQ; the
+    forward has two) over the pairs the mask keeps, for a call of
+    ``shape`` (b, h, hkv, sq, sk, d)."""
+    return _forward_flops(shape, causal) * 5 // 2
+
+
+def nbytes(shape, dtype) -> int:
+    """Bytes a call of ``shape`` must move: q, k, v, o and do read once
+    and dq, dk and dv written once in ``dtype``, the fp32 lse read
+    once."""
+    b, h, hkv, sq, sk, d = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    return es * (4 * b * h * sq * d + 4 * b * hkv * sk * d) + 4 * b * h * sq
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -154,7 +173,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    torch.Tensor]:
     """``flash_attention_bwd_plain``'s function; on a CUDA device, one
     call of the hand-written kernel's three launches (counted once, on
-    ``flash_attention_bwd.launches``).  The gradients have their inputs'
+    ``flash_attention_bwd.launches``); on the meta device, empty
+    gradients and the call's count.  The gradients have their inputs'
     layouts.  Outside the forward's domain (dtype, head dim, GQA
     grouping, devices) it raises."""
     _check(q, k, v)
@@ -174,6 +194,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"on {t.device}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    if q.device.type == "meta":
+        if d not in HEAD_DIMS:
+            raise ValueError(f"flash_attention_bwd: head dim {d} not in "
+                             f"{HEAD_DIMS}")
+        shape = (b, h, k.shape[1], sq, k.shape[2], d)
+        meta.record("flash_attention_bwd", flops(shape, causal),
+                    nbytes(shape, q.dtype))
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")

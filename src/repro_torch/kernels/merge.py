@@ -27,6 +27,12 @@ def _kernel() -> ctypes._CFuncPtr:
     return build.function("merge_path", "repro_merge_path", _ARGTYPES)
 
 
+def nbytes(sizes: Tuple[int, ...]) -> int:
+    """Bytes a launch over rows of ``sizes`` keys must move: 8 a key
+    read, 8 + 1 a merged key and its source flag written."""
+    return 17 * sum(sizes)
+
+
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     for name, t in (("a", a), ("b", b)):
         if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -27,6 +28,12 @@ def _kernel() -> ctypes._CFuncPtr:
     """The typed C entry point, resolved (and built) once a process."""
     return build.function("multi_merge", "repro_multi_merge_ranks",
                           _ARGTYPES)
+
+
+def nbytes(sizes: Tuple[int, ...]) -> int:
+    """Bytes a launch over rows of ``sizes`` keys must move: 8 a key and
+    8 a row offset read, an 8-byte rank a key written."""
+    return 16 * sum(sizes) + 8 * (len(sizes) + 1)
 
 
 def _check(keys: torch.Tensor, offs: torch.Tensor) -> None:

@@ -8,7 +8,8 @@ a difference of cumulative sums.  When grad mode is on and an input
 requires a gradient, ``ssd_chunk`` goes through ``SsdChunk``: the
 forward kernel, then the hand-written backward kernel
 (``ssd_chunk_bwd.py``, ``csrc/ssd_chunk_bwd.cu``); on the CPU their plain
-versions.
+versions.  On the ``meta`` device it runs nothing: it returns an empty y
+and reports ``flops`` and ``nbytes`` of the call (``kernels/meta.py``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, meta
 
 #: repro_ssd_chunk(x, a, b, c, y, B, nc, l, H, P, N, dtype, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
@@ -50,6 +51,35 @@ def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"ssd_chunk: {name} must be contiguous")
+
+
+def flops(shape) -> int:
+    """Operations of the causal half (j <= i) of G once per (b, c) and of
+    Y per head, for a call of ``shape`` (B, nc, l, H, P, N)."""
+    B, nc, l, H, P, N = shape
+    tri = l * (l + 1) // 2
+    return 2 * B * nc * tri * N + 2 * B * nc * H * tri * P
+
+
+def nbytes(shape, dtype) -> int:
+    """Bytes a call of ``shape`` must move: x, b and c (in ``dtype``) and
+    a (fp32) read once, y (fp32) written once."""
+    B, nc, l, H, P, N = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    return es * (B * nc * l * H * P + 2 * B * nc * l * N) \
+        + 4 * B * H * nc * l + 4 * B * nc * l * H * P
+
+
+def _meta(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The meta route: y empty, the call's operations and bytes
+    reported (``kernels/meta.py``); a chunk above MAX_CHUNK raises, as a
+    launch does."""
+    B, nc, l, H, P = x.shape
+    if l > MAX_CHUNK:
+        raise ValueError(f"ssd_chunk: chunk length {l} > {MAX_CHUNK}")
+    shape = (B, nc, l, H, P, b.shape[-1])
+    meta.record("ssd_chunk", flops(shape), nbytes(shape, x.dtype))
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device)
 
 
 def ssd_chunk_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -97,8 +127,12 @@ class SsdChunk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, a, b, c):
-        y = ssd_chunk_plain(x, a, b, c) if x.device.type == "cpu" \
-            else _launch(x, a, b, c)
+        if x.device.type == "cpu":
+            y = ssd_chunk_plain(x, a, b, c)
+        elif x.device.type == "meta":
+            y = _meta(x, b)
+        else:
+            y = _launch(x, a, b, c)
         ctx.save_for_backward(x, a, b, c)
         return y
 
@@ -112,16 +146,18 @@ class SsdChunk(torch.autograd.Function):
 def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor) -> torch.Tensor:
     """``ssd_chunk_plain``'s function; on a CUDA device, one launch of
-    the hand-written kernel (counted on ``ssd_chunk.launches``).  When
-    grad mode is on and an input requires a gradient, through
-    ``SsdChunk``, on the CPU too."""
+    the hand-written kernel (counted on ``ssd_chunk.launches``); on the
+    meta device, ``_meta``.  When grad mode is on and an input requires a
+    gradient, through ``SsdChunk``, on the CPU too."""
     _check(x, a, b, c)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
         return SsdChunk.apply(x, a, b, c)
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, a, b, c)
+    if x.device.type == "meta":
+        return _meta(x, b)
     return _launch(x, a, b, c)
 
 

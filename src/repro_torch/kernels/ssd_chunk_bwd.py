@@ -20,7 +20,9 @@ and takes the plain version, ``ssd_chunk_bwd_plain``, only for tensors
 on the CPU.  The kernel is held to the plain version by ``bwd_err``:
 each gradient element's error, less the one bf16 rounding both versions
 make of a bf16 gradient, over the summed magnitude of its terms
-(``ssd_chunk_bwd_scale``), within ``ATOL``.
+(``ssd_chunk_bwd_scale``), within ``ATOL``.  On the ``meta`` device it
+runs nothing: it returns empty gradients and reports ``flops`` and
+``nbytes`` of the call (``kernels/meta.py``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import build
+from . import build, meta
 from .ssd_chunk import _DTYPES, MAX_CHUNK, _check
 
 #: repro_ssd_chunk_bwd(x, a, b, c, dy, dx, da, db, dc, scratch, B, nc, l,
@@ -74,6 +76,31 @@ BF16_ROUNDING = 2.0 ** -7 * (1 + 2.0 ** -7)
 #: scale, so that a product that underflows in one version and not the
 #: other (a term of a few 1e-38) is no error
 SCALE_FLOOR = 1e-6
+
+
+def flops_by_product(shape) -> Tuple[int, int]:
+    """Operations of the backward's products over the causal halves, for
+    a call of ``shape`` (B, nc, l, H, P, N): (those once per (b, c): G =
+    C B^T, dC = dG B, dB = dG^T C; those per head: dW = dY X^T,
+    dX = W^T dY)."""
+    B, nc, l, H, P, N = shape
+    tri = l * (l + 1) // 2
+    return 3 * 2 * B * nc * tri * N, 2 * 2 * B * nc * H * tri * P
+
+
+def flops(shape) -> int:
+    """All of ``flops_by_product``."""
+    return sum(flops_by_product(shape))
+
+
+def nbytes(shape, dtype) -> int:
+    """Bytes a call of ``shape`` must move: x, b and c (in ``dtype``), a
+    and dy (fp32) read once, dx, db and dc (in ``dtype``) and da (fp32)
+    written once."""
+    B, nc, l, H, P, N = shape
+    es = torch.empty(0, dtype=dtype).element_size()
+    xs, bcs, as_ = B * nc * l * H * P, B * nc * l * N, B * H * nc * l
+    return es * (2 * xs + 4 * bcs) + 4 * xs + 2 * 4 * as_
 
 
 def head_group(B: int, nc: int, l: int, H: int) -> int:
@@ -253,11 +280,21 @@ def ssd_chunk_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                              torch.Tensor]:
     """``ssd_chunk_bwd_plain``'s function; on a CUDA device, one call of
     the hand-written kernel's five launches (counted once, on
-    ``ssd_chunk_bwd.launches``).  Outside the kernel's domain (chunk
-    above MAX_CHUNK, head dim above MAX_HEAD_DIM, devices) it raises."""
+    ``ssd_chunk_bwd.launches``); on the meta device, empty gradients and
+    the call's count.  Outside the kernel's domain (chunk above
+    MAX_CHUNK, head dim above MAX_HEAD_DIM, devices) it raises."""
     _check_bwd(x, a, b, c, dy)
     if x.device.type == "cpu":
         return ssd_chunk_bwd_plain(x, a, b, c, dy)
+    if x.device.type == "meta":
+        B, nc, l, H, P = x.shape
+        if l > MAX_CHUNK or P > MAX_HEAD_DIM:
+            raise ValueError(f"ssd_chunk_bwd: chunk length {l} (at most "
+                             f"{MAX_CHUNK}), head dim {P} (at most "
+                             f"{MAX_HEAD_DIM})")
+        shape = (B, nc, l, H, P, b.shape[-1])
+        meta.record("ssd_chunk_bwd", flops(shape), nbytes(shape, x.dtype))
+        return tuple(torch.empty_like(t) for t in (x, a, b, c))
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_bwd: no kernel for device {x.device}")
     return _launch(x, a, b, c, dy)

@@ -1,5 +1,5 @@
-"""Train, prefill and serve step builders (the reference's
-``launch/steps.py``).
+"""Train, prefill and serve step builders and the inputs' specs (the
+reference's ``launch/steps.py``).
 
 A step runs on the CUDA device unless ``make_*_step`` is given another
 ``device``; without a card and without ``device="cpu"`` it raises.  The
@@ -7,9 +7,13 @@ prefill and serve steps run under ``torch.inference_mode``.  The train
 step takes the gradient of ``api.loss_fn`` by autograd (on the card the
 attention's gradient is the ``flash_attention`` backward kernel, the
 SSD's the ``ssd_chunk`` backward kernel) and
-updates the module's parameters in place.  The reference's input-spec
-builders (``batch_specs``, ``param_specs``, ...) serve its dry run and
-wait for that port (ROADMAP.md).
+updates the module's parameters in place.
+
+``input_specs(cfg, shape)`` gives stand-ins for every input of the step
+a shape runs, as tensors on the ``meta`` device (shapes and dtypes, no
+storage: the port's counterpart of the reference's
+``ShapeDtypeStruct``s); nothing is allocated.  A step built with
+``device="meta"`` runs on them (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +31,77 @@ from repro_torch.optim import optimizers as opt
 Params = Any
 
 
+META = torch.device("meta")
+
+
+# ---------------------------------------------------------------------- #
+# input specs (meta tensors; nothing is allocated)
+# ---------------------------------------------------------------------- #
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec
+                ) -> Dict[str, torch.Tensor]:
+    b, s = shape.global_batch, shape.seq_len
+    out = {
+        "tokens": torch.empty((b, s), dtype=torch.int32, device=META),
+        "labels": torch.empty((b, s), dtype=torch.int32, device=META),
+    }
+    if cfg.family == "vlm":
+        out["patches"] = torch.empty((b, cfg.n_patches, cfg.d_model),
+                                     dtype=torch.bfloat16, device=META)
+    if cfg.family == "encdec":
+        out["frames"] = torch.empty((b, cfg.enc_frames, cfg.d_model),
+                                    dtype=torch.bfloat16, device=META)
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> nn.Module:
+    """The model module with its parameters on ``meta``."""
+    return api.init(cfg, None, META)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int
+                ) -> Dict[str, torch.Tensor]:
+    return api.init_cache(cfg, batch, max_len, device=META)
+
+
+def opt_state_specs(cfg: ModelConfig, optimizer: opt.Optimizer,
+                    params: Optional[nn.Module] = None) -> Params:
+    """The optimizer's state over ``params`` (``param_specs(cfg)`` by
+    default), on ``meta``."""
+    params = param_specs(cfg) if params is None else params
+    return optimizer.init(dict(params.named_parameters()))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                optimizer: Optional[opt.Optimizer] = None
+                ) -> Dict[str, Any]:
+    """All inputs of the step this shape runs (train/prefill/decode); a
+    train step's optimizer state is over its ``params``."""
+    params = param_specs(cfg)
+    if shape.kind == "train":
+        optimizer = optimizer or opt.for_config(cfg)
+        return {
+            "params": params,
+            "opt_state": opt_state_specs(cfg, optimizer, params),
+            "batch": batch_specs(cfg, shape),
+        }
+    if shape.kind == "prefill":
+        return {
+            "params": params,
+            "batch": batch_specs(cfg, shape),
+        }
+    # decode: one new token against a seq_len KV cache
+    b = shape.global_batch
+    return {
+        "params": params,
+        "cache": cache_specs(cfg, b, shape.seq_len),
+        "token": torch.empty((b,), dtype=torch.int32, device=META),
+        "pos": torch.empty((b,), dtype=torch.int32, device=META),
+    }
+
+
+# ---------------------------------------------------------------------- #
+# step functions
+# ---------------------------------------------------------------------- #
 def model_batch(cfg: ModelConfig, batch: Dict[str, Any], device
                 ) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays or tensors as the model takes it, on

@@ -11,8 +11,10 @@ there) or, without it, to a fresh temporary directory, whose name the
 launcher prints.  Runs on the CUDA device unless ``--device`` names
 another.  ``--seq`` defaults to 128, raised to the config's SSD chunk
 for the SSM and hybrid families (256 at full width); a ``--seq`` that is
-not a multiple of the chunk raises.  ``--dp`` and ``--tp`` other than 1
-raise: the port has no sharding yet.
+not a multiple of the chunk raises.  ``--dp`` and ``--tp`` build the
+mesh through ``launch/mesh.make_mesh`` over the devices of ``--device``'s
+type: ``--dp 1 --tp 1`` trains on one device through the mesh, and a
+mesh larger than the devices there are raises from ``make_mesh``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import dataclasses
 from typing import Optional, Sequence
 
 import repro_torch.configs as C
+from repro_torch.kernels.backends import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 DEFAULT_SEQ = 128
@@ -64,10 +68,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
-    if args.dp != 1 or args.tp != 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: the port trains on one device; "
-            f"data and tensor parallelism wait for its sharding layer")
+    mesh = make_mesh(args.dp, args.tp,
+                     device=resolve_device(args.device))
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     if args.layers is not None:
@@ -81,7 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                          **({} if args.ckpt_dir is None else
                             {"checkpoint_dir": args.ckpt_dir}))
     print(f"checkpoints in {tcfg.checkpoint_dir}")
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, tcfg, mesh=mesh)
     state = trainer.run_with_recovery()
     print(f"finished at step {state.step}")
     for rec in trainer.metrics_log[-5:]:

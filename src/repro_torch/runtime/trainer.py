@@ -4,12 +4,17 @@ Wires together: sharded data -> train step -> async checkpointing ->
 heartbeat/straggler monitoring -> crash recovery (restore from the last
 complete checkpoint).
 
-The reference takes a device mesh; this loop takes one device and runs
-on the CUDA device unless ``device`` names another (``device="cpu"``
-runs every kernel's plain version).  A state's parameters are the model
-module; a checkpoint holds ``{"params": <name -> tensor dict>,
-"opt_state": ...}`` through ``checkpoint.CheckpointManager`` and is
-restored onto the loop's device.
+The loop takes a mesh, as the reference's does: by default
+``make_mesh(1, 1)`` over its device, the CUDA device unless ``device``
+names another (``device="cpu"`` runs every kernel's plain version).
+Around the step it sets the mesh and ``rules_for("train")`` as the
+logical ones (``sharding/logical.py``), and it places the parameters and
+the optimizer state by ``param_shardings`` (each tensor whole on the
+mesh's one device).  A mesh of more devices raises: the port's step runs
+on one.  A state's parameters are the model module; a checkpoint holds
+``{"params": <name -> tensor dict>, "opt_state": ...}`` through
+``checkpoint.CheckpointManager`` and is restored onto the loop's
+device.
 
 Crash recovery retries a non-finite loss (``FloatingPointError``) and
 other ``RuntimeError``s, as the reference does, but never a
@@ -32,10 +37,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, ShardedSyntheticDataset
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.kernels.build import KernelError
+from repro_torch.launch import sharding as S
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import api
 from repro_torch.optim import optimizers as opt
 from repro_torch.runtime.health import HeartbeatMonitor
+from repro_torch.sharding import logical
 
 Params = Any
 
@@ -66,10 +74,20 @@ class TrainState:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
-                 device=None, optimizer: Optional[opt.Optimizer] = None):
+                 device=None, optimizer: Optional[opt.Optimizer] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = make_mesh(1, 1, device=resolve_device(device))
+        elif device is not None:
+            raise ValueError("give the Trainer a device or a mesh, not both")
+        if mesh.abstract or mesh.size != 1:
+            raise NotImplementedError(
+                f"a mesh of {mesh.size} devices ({mesh.shape}): the port's "
+                f"step runs on one device")
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         self.optimizer = optimizer or opt.for_config(cfg)
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir,
                                       keep=tcfg.keep_checkpoints)
@@ -92,7 +110,10 @@ class Trainer:
         params = api.init(self.cfg,
                           torch.Generator(self.device).manual_seed(seed),
                           self.device)
+        params = S.place(params, S.param_shardings(params, self.mesh))
         opt_state = self.optimizer.init(dict(params.named_parameters()))
+        opt_state = S.place(opt_state,
+                            S.param_shardings(opt_state, self.mesh))
         return TrainState(params=params, opt_state=opt_state, step=0)
 
     def _compiled_step(self):
@@ -129,8 +150,10 @@ class Trainer:
         with torch.no_grad():
             for k, p in state.params.named_parameters():
                 p.copy_(restored["params"][k])
-        return TrainState(params=state.params,
-                          opt_state=restored["opt_state"], step=got)
+        opt_state = S.place(restored["opt_state"], S.param_shardings(
+            restored["opt_state"], self.mesh))
+        return TrainState(params=state.params, opt_state=opt_state,
+                          step=got)
 
     def train(self, state: Optional[TrainState] = None,
               on_step: Optional[Callable[[int, Dict], None]] = None
@@ -139,6 +162,8 @@ class Trainer:
         step_fn = self._compiled_step()
         host = 0
         saved = None
+        logical.set_mesh(self.mesh)
+        logical.set_rules(S.rules_for("train"))
         try:
             while state.step < self.tcfg.total_steps:
                 t0 = time.time()
@@ -164,6 +189,8 @@ class Trainer:
                     self._save(state)
                     saved = state.step
         finally:
+            logical.set_mesh(None)
+            logical.set_rules(None)
             self.ckpt.wait()
         if saved != state.step:     # the last step's state, once
             self._save(state)

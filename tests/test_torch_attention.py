@@ -100,8 +100,12 @@ def test_flash_attention_wrapper_on_cpu_takes_plain():
     qs = q.transpose(1, 2).contiguous()
     assert torch.equal(flash_attention(qs.transpose(1, 2), k, v),
                        flash_attention_plain(q, k, v))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        flash_attention(*(t.to("meta") for t in (q, k, v)))
+    # the meta device (a dry run's route): an empty output of q's shape
+    # and dtype, no launch and no plain version
+    out = flash_attention(*(t.to("meta") for t in (q, k, v)))
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape,
+                                                       q.dtype)
+    assert flash_attention.launches == 0
     with pytest.raises(ValueError, match="divide"):
         flash_attention(q[:, :3], k, v)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -236,9 +240,13 @@ def test_block_sparse_matmul_wrapper_on_cpu():
     assert bool((z[32:64] == 0).all())
     zb = block_sparse_matmul(tiles.bfloat16(), rows, cols, b.bfloat16(), 96)
     assert zb.dtype == torch.float32
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        block_sparse_matmul(*(t.to("meta") for t in (tiles, rows, cols, b)),
-                            m=96)
+    # the meta device (a dry run's route): an empty fp32 Z, no launch
+    block_sparse_matmul.launches = 0
+    zm = block_sparse_matmul(*(t.to("meta") for t in (tiles, rows, cols, b)),
+                             m=96)
+    assert (zm.device.type, zm.shape, zm.dtype) == ("meta", (96, 24),
+                                                    torch.float32)
+    assert block_sparse_matmul.launches == 0
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         block_sparse_matmul(tiles.double(), rows, cols, b, m=96)
     with pytest.raises(ValueError, match="want a_tiles"):

@@ -4,6 +4,7 @@ CPU at a tiny size."""
 import ast
 import contextlib
 import dataclasses
+import json
 import os
 import re
 import shutil
@@ -170,6 +171,9 @@ assert not any(m == "jax" or m.startswith(("jax.", "repro."))
     ["examples/torch/design_space_study.py", "--device", "cpu"],
     ["examples/torch/serve_batched.py", "--device", "cpu", "--clients", "4",
      "--queries", "6"],
+    ["repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape",
+     "train_4k", "--card", "H100 80GB HBM3"],
+    ["repro_torch.launch.roofline"],
 ], ids=lambda a: Path(a[0]).stem.split(".")[-1])
 def test_entry_points_run_where_jax_and_reference_cannot_import(argv,
                                                                 tmp_path):
@@ -178,6 +182,14 @@ def test_entry_points_run_where_jax_and_reference_cannot_import(argv,
     fails."""
     if argv[0] == "repro_torch.launch.train":
         argv = argv + ["--ckpt-dir", str(tmp_path / "ckpt")]
+    records = tmp_path / "dryrun"
+    if argv[0] == "repro_torch.launch.roofline":
+        # the table reads the records of a dry run
+        from repro_torch.launch import dryrun
+        dryrun.run_cell("olmo-1b", "decode_32k", card="H100 80GB HBM3",
+                        directory=records, verbose=False)
+    if argv[0] in ("repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
+        argv = argv + ["--dir", str(records)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **CHILD_THREADS)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_MAIN, *argv],
                          env=env, capture_output=True, text=True,
@@ -189,6 +201,13 @@ def test_entry_points_run_where_jax_and_reference_cannot_import(argv,
         assert "phase 2 resumed and finished at step 9" in out.stdout
     if "quickstart" in argv[0]:
         assert "matches dense einsum oracle: True" in out.stdout
+    if argv[0] == "repro_torch.launch.dryrun":
+        assert "dry-run summary: ok=1 skipped=0 errors=0" in out.stdout
+        assert json.loads((records / "olmo-1b__train_4k__h100_1x1.json")
+                          .read_text())["status"] == "ok"
+    if argv[0] == "repro_torch.launch.roofline":
+        assert "=== roofline (h100_1x1) ===" in out.stdout
+        assert re.search(r"olmo-1b\s+decode_32k\s", out.stdout)
 
 
 def test_simulate_without_a_device_raises(monkeypatch):
@@ -1242,3 +1261,40 @@ def test_ssd_train_step_profile_shares(chip_smoke, capsys):
     assert "ssd backward 50.0000 ms (5.00% of the step, 5.00% of device " \
         "time), ssd forward 20.0000 ms (2.00% of device time)" in out
     assert "flash" not in out
+
+
+def test_chip_smoke_roofline_phase_rehearses_on_cpu(chip_smoke):
+    """Phase roofline at smoke size: each step dry-run on ``meta`` (no
+    launch), its terms on the H100 SXM's peaks beside the seconds given
+    as measured; a step measured faster than its compute term fails the
+    phase.  Its plan names the phases that time its steps, on their
+    configs and shapes."""
+    import repro_torch.configs as TC
+    from repro_torch.configs.base import ShapeSpec
+    plan = [("train_step", TC.get_smoke("olmo-1b"),
+             ShapeSpec("t", 64, 2, "train")),
+            ("hybrid_prefill", TC.get_smoke("jamba-1.5-large-398b"),
+             ShapeSpec("p", 64, 2, "prefill"))]
+    before = [k.launches for k in chip_smoke.MODEL_KERNELS]
+    out = chip_smoke.phase_roofline({"train_step": 1.0,
+                                     "hybrid_prefill": 1.0},
+                                    "NVIDIA H100 80GB HBM3", plan=plan)
+    assert [k.launches for k in chip_smoke.MODEL_KERNELS] == before
+    rec = out["train_step"]
+    peaks = chip_smoke.peaks_for("NVIDIA H100 80GB HBM3")
+    assert rec["compute_s"] == rec["flops"] / peaks.bf16_flops
+    assert rec["memory_s"] == rec["hbm_bytes"] / peaks.hbm_bytes_per_s
+    assert rec["compute_share"] == rec["compute_s"]
+    # remat: the counted operations of a train step exceed 6 N D
+    assert 1.0 < rec["counted_over_model"] < 1.5
+    assert set(rec["kernel_flops"]) == {"flash_attention",
+                                        "flash_attention_bwd"}
+    with pytest.raises(AssertionError, match="train_step"):
+        chip_smoke.phase_roofline({"train_step": 1e-12,
+                                   "hybrid_prefill": 1.0},
+                                  "NVIDIA H100 80GB HBM3", plan=plan)
+    names = [n for n, _, _ in chip_smoke.roofline_plan()]
+    assert names == ["train_step", "mamba2_train_step", "moe_train_step",
+                     "encdec_train_step", "hybrid_train_step", "prefill",
+                     "dense_prefill", "moe_prefill", "encdec_prefill",
+                     "hybrid_prefill"]

@@ -162,8 +162,12 @@ def test_bwd_wrapper_on_cpu_takes_plain_and_checks_inputs():
         ssd_chunk_bwd(x, a[:, :1], b, c, dy)
     with pytest.raises(ValueError, match="share float32 or bfloat16"):
         ssd_chunk_bwd(x, a, b.bfloat16(), c, dy)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ssd_chunk_bwd(*(t.to("meta") for t in (x, a, b, c, dy)))
+    # the meta device (a dry run's route): empty gradients of the
+    # inputs' shapes and dtypes, no launch and no plain version
+    grads = ssd_chunk_bwd(*(t.to("meta") for t in (x, a, b, c, dy)))
+    assert [(g.device.type, g.shape, g.dtype) for g in grads] == \
+        [("meta", t.shape, t.dtype) for t in (x, a, b, c)]
+    assert ssd_chunk_bwd.launches == 0
 
 
 def test_launch_split_needs_a_card():

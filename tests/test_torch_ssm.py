@@ -145,8 +145,11 @@ def test_ssd_chunk_wrapper_on_cpu_takes_plain():
     assert ssd_chunk.launches == 0
     assert got.dtype == torch.float32 and got.shape == x.shape
     assert torch.equal(got, ssd_chunk_plain(x, a, b, c))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ssd_chunk(*(t.to("meta") for t in (x, a, b, c)))
+    # the meta device (a dry run's route): an empty fp32 y of x's shape,
+    # no launch and no plain version
+    ym = ssd_chunk(*(t.to("meta") for t in (x, a, b, c)))
+    assert (ym.device.type, ym.shape, ym.dtype) == ("meta", x.shape,
+                                                    torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_chunk(x.permute(4, 3, 2, 1, 0).contiguous()
                   .permute(4, 3, 2, 1, 0), a, b, c)

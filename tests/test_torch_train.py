@@ -367,9 +367,14 @@ def test_step_for_picks_the_step_of_each_shape():
 
 
 def test_dp_or_tp_raise_in_the_launcher():
+    """The launcher builds its mesh with ``make_mesh``: a data or tensor
+    axis wider than the devices there are raises there, with the count."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="mesh needs 2 devices; 1 cpu"):
         train.main(["--arch", "olmo-1b", "--smoke", "--dp", "2",
+                    "--device", "cpu"])
+    with pytest.raises(ValueError, match="mesh needs 2 devices; 1 cpu"):
+        train.main(["--arch", "olmo-1b", "--smoke", "--tp", "2",
                     "--device", "cpu"])
 
 
