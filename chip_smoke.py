@@ -190,7 +190,17 @@ test can rehearse them at a tiny size with the kernels' plain versions:
                     (``launch/roofline.peaks_for``), the dominant one,
                     each term over the measured seconds, the counted
                     operations over the model's; no step may beat its
-                    compute term.
+                    compute term;
+44. pod_dryrun   -- host only: OLMo-1B and Qwen2-MoE-A2.7B x train_4k
+                    walked on the reference's 16 x 16 and 2 x 16 x 16
+                    meshes (``launch/dryrun.run_cell``: DTensor on a
+                    fake process group of 256 and 512 ranks, on
+                    ``meta``), each device's compute, memory and
+                    collective terms on the card's peaks (the collective
+                    term on the network between nodes,
+                    ``launch/roofline.link_bytes_per_s``), the
+                    collectives by op and the walk's seconds; fails if a
+                    walk errs or leaves a process group.
 
 fp32 checks run with TF32 off for matmuls and cuDNN convolutions
 (``main`` sets both flags), so fp32 means fp32.  The second-to-last
@@ -271,7 +281,8 @@ from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
-from repro_torch.launch.roofline import peaks_for  # noqa: E402
+from repro_torch.launch.roofline import (link_bytes_per_s,  # noqa: E402
+                                         peaks_for)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -352,10 +363,10 @@ MAIN_CONFIGS = (("gamma", 8192, 100_000), ("extensor", 4096, 40_000),
 #: Table 4 range), its FiberCache capacities (MB) swept on the vector path,
 #: and the smaller Gamma that the engine's behaviour is checked on
 DSE_SIZE = (8192, 100_000)
-#: the FiberCache axis's two ends on the kernels (each point about 50 s of
-#: host time with its check; four took the script within 44 s of its
-#: 1,200 s limit when the host-bound graph phase ran slow)
-DSE_VECTOR_CAPS = (0.002, 6.0)
+#: the FiberCache axis's small end on the kernels (each point 50-60 s of
+#: host time with its check; two took the script to 1,161 s of its 1,200
+#: s limit on a slow host, four within 44 s of it before)
+DSE_VECTOR_CAPS = (0.002,)
 #: the engine's checks at DSE_ENGINE_SIZE (a crash at the fourth point);
 #: 2,048^2 with 20K nonzeros took 72 s of the script on the card, cut to
 #: make room for the MoE, encoder-decoder and hybrid train steps (the
@@ -3892,6 +3903,64 @@ def phase_roofline(measured: Dict[str, float], card: str, plan=None,
     return out
 
 
+# ---------------------------------------------------------------------- #
+# 44: the pod and multipod dry runs (host only)
+# ---------------------------------------------------------------------- #
+#: (arch, shape) walked on both of the reference's production meshes
+POD_CELLS = (("olmo-1b", "train_4k"), ("qwen2-moe-a2.7b", "train_4k"))
+
+
+def phase_pod_dryrun(card: str, cells=POD_CELLS, peaks=None
+                     ) -> Dict[str, Dict]:
+    """Each cell of ``cells`` walked on ``dryrun.BOTH`` (``run_cell``,
+    from its 1- and 2-unit probes; nothing runs on the card): one
+    device's compute, memory and collective terms on ``peaks``
+    (``peaks_for(card)``; the link is ``link_bytes_per_s`` of the
+    mesh's chips), its collectives by op, its argument bytes against
+    the card's memory and the walk's seconds.  Fails if a walk errs or
+    leaves a ``torch.distributed`` process group behind."""
+    import torch.distributed as dist
+    peaks = peaks or peaks_for(card)
+    out = {}
+    walks = [(arch, shape, mesh) for arch, shape in cells
+             for mesh in dryrun.BOTH]
+    # one process a walk, up to one a core (``run_cells`` raises if one
+    # leaves a process group behind)
+    for (arch, shape, mesh), rec in zip(walks, dryrun.run_cells(
+            walks, card, save=False, verbose=False)):
+        if rec["status"] != "ok":
+            raise AssertionError(f"pod_dryrun {arch} x {shape} x {mesh}: "
+                                 f"{rec.get('error')}")
+        if dist.is_initialized():
+            raise AssertionError("pod_dryrun: a process group was left")
+        link = link_bytes_per_s(peaks, rec["chips"])
+        terms = roofline(rec["flops_corrected"],
+                         rec["hbm_bytes_corrected"],
+                         rec["collective_wire_bytes_corrected"], 1,
+                         peak_flops=peaks.bf16_flops,
+                         hbm_gbs=peaks.hbm_bytes_per_s, link_gbs=link)
+        out[f"{arch}/{shape}/{mesh}"] = {
+            "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+            "collective_s": terms.collective_s,
+            "dominant": terms.dominant, "walk_s": rec["walk_s"],
+            "collective_ops": rec["collective_ops_corrected"],
+            "collective_bytes_by_op":
+                rec["collective_bytes_by_op_corrected"]}
+        log(f"pod_dryrun {arch} x {shape} x {mesh} ({rec['chips']} "
+            f"devices) on {card}, per device: {rec['flops_corrected']:.6g}"
+            f" operations, {rec['hbm_bytes_corrected']:.6g} bytes, "
+            f"{rec['collective_wire_bytes_corrected']:.6g} wire bytes; "
+            f"compute term {terms.compute_s:.6g} s, memory term "
+            f"{terms.memory_s:.6g} s, collective term "
+            f"{terms.collective_s:.6g} s at {link:.6g} B/s: "
+            f"{terms.dominant}-bound; collectives "
+            f"{rec['collective_ops_corrected']} wire bytes by op "
+            f"{rec['collective_bytes_by_op_corrected']}; arguments "
+            f"{rec['argument_bytes']:.6g} bytes a device, fits "
+            f"{rec['fits']}; walk {rec['walk_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3905,6 +3974,8 @@ def main() -> int:
     log(f"cut: phase dse's engine checks at {DSE_ENGINE_SIZE[0]}^2, "
         f"{DSE_ENGINE_SIZE[1]} nonzeros (was 2048^2, 20000): room for "
         f"phases 37-42")
+    log(f"cut: phase dse's vector points {DSE_VECTOR_CAPS} MB (was 0.002 "
+        f"and 6.0): room for phase 44 on a slow host")
     kernels = _timed("kernels", smi, phase_kernels, "cuda")
     _timed("oracle", smi, phase_oracle, "cuda")
     main_run = _timed("main", smi, phase_main, "cuda", card=smi)
@@ -3979,6 +4050,7 @@ def main() -> int:
         measured[f"{path}_train_step"] = \
             flash_bwd_rec[f"{path}_train_step"]["s_per_step"]
     _timed("roofline", smi, phase_roofline, measured, name)
+    _timed("pod_dryrun", smi, phase_pod_dryrun, name)
     kernels += bwd_recs
     paths.update(train_paths)
     cons.update(train_cons)

@@ -34,6 +34,10 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import Partial
+
+from repro_torch.sharding.logical import (current_mesh, is_sharded,
+                                          placements_of)
 
 from . import build, meta
 from .ref import attention_ref
@@ -129,16 +133,88 @@ def _meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
           with_lse: bool):
     """The meta route: (o, lse or None) empty, the call's operations and
     bytes reported (``kernels/meta.py``); outside the kernel's head dims
-    it raises, as a launch does."""
+    it raises, as a launch does.  DTensors (a walked mesh) go through
+    ``meta.local``, each rank's shards (``Split``) through this route."""
+    if is_sharded(q):
+        def body(ql, kl, vl):
+            o, lse = _meta_local(ql, kl, vl, causal, with_lse, split)
+            return (o, lse) if with_lse else o
+        split = Split(q, k)
+        out = meta.local(body, (q, k, v), (split.q, split.kv, split.kv),
+                         (split.q, split.q) if with_lse else split.q)
+        return out if with_lse else (out, None)
+    return _meta_local(q, k, v, causal, with_lse)
+
+
+def _meta_local(q, k, v, causal: bool, with_lse: bool, split=None):
+    """One device's meta call on its shards, split by ``split`` (None:
+    the whole call)."""
     b, h, sq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     shape = (b, h, k.shape[1], sq, k.shape[2], d)
-    meta.record("flash_attention", flops(shape, causal),
-                nbytes(shape, q.dtype, with_lse))
+    if split is not None:
+        shape = split.local_shape(shape)
+    meta.record("flash_attention",
+                split.busiest(flops, shape, causal) if split else
+                flops(shape, causal), nbytes(shape, q.dtype, with_lse))
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     return torch.empty_like(q), lse
+
+
+class Split:
+    """How the kernel is split over a walked mesh, by the sharding
+    layer's rules (``logical.placements_of``): the batch over ``pod``
+    and ``data``; on ``model``, the query heads where they divide it,
+    the kv heads split with them, or, where those do not divide, held
+    whole on each device, which then reads the kv heads its query heads
+    are grouped on (a device's heads lie in one kv group); else the
+    queries' sequence (``sp``), the keys whole; else nothing.  ``q`` and
+    ``kv`` are the placements of q (o, do, lse) and of k and v; ``dkv``
+    those of dk and dv, a partial sum where k is whole on a device but
+    its queries are split."""
+
+    def __init__(self, q: torch.Tensor, k: torch.Tensor):
+        b, h, sq, _ = q.shape
+        hkv = k.shape[1]
+        n = dict(current_mesh().shape).get("model", 1)
+        self.heads, self.hkv, self.rows = h, hkv, 1
+        batch = ("batch", None, None, None)
+        self.q = placements_of(q.shape, ("batch", "heads", None, None))
+        self.kv = placements_of(k.shape, ("batch", "kv_heads", None, None))
+        split_heads = self.q != placements_of(q.shape, batch)
+        self.narrow = split_heads and \
+            self.kv == placements_of(k.shape, batch)
+        if self.narrow and (h // hkv) % (h // n) != 0:
+            split_heads = self.narrow = False
+        if not split_heads:
+            self.q = placements_of(q.shape, ("batch", None, "sp", None))
+            self.kv = placements_of(k.shape, batch)
+            if self.q != placements_of(q.shape, batch):
+                self.rows = n
+        split_q = self.narrow or self.rows > 1
+        self.dkv = tuple(Partial() if split_q and a == "model" else p
+                         for p, a in zip(self.kv, current_mesh().axis_names))
+
+    def local_shape(self, shape):
+        """A local call's (b, h, hkv, sq, sk, d), its kv heads those that
+        its query heads read."""
+        b, h, hkv, sq, sk, d = shape
+        if self.narrow:
+            hkv = max(1, h * self.hkv // self.heads)
+        return (b, h, hkv, sq, sk, d)
+
+    def busiest(self, count, shape, causal: bool) -> int:
+        """``count`` (a kernel's ``flops``) for the busiest device's local
+        call of ``shape``: where the queries are split ``rows`` ways
+        along the sequence in contiguous blocks, the last block, whose
+        rows keep the most causal pairs (about (2 rows - 1) / rows times
+        the mean); the step waits for that device."""
+        b, h, hkv, sq, sk, d = shape
+        whole = (b, h, hkv, sq * self.rows, sk, d)
+        prefix = (b, h, hkv, sq * (self.rows - 1), sk, d)
+        return count(whole, causal) - count(prefix, causal)
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:

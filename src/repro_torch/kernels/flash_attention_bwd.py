@@ -28,8 +28,11 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.sharding.logical import is_sharded
+
 from . import build, meta
-from .flash_attention import _DTYPES, HEAD_DIMS, _check, _kernel_layout
+from .flash_attention import (_DTYPES, HEAD_DIMS, Split, _check,
+                              _kernel_layout)
 from .flash_attention import flops as _forward_flops
 
 #: repro_flash_attention_bwd(q, k, v, o, lse, do, dq, dk, dv, dsum, B, H,
@@ -166,6 +169,35 @@ def bwd_err(got, want, scale) -> float:
     return worst
 
 
+def _meta(q, k, v, causal: bool, split=None):
+    """One device's meta call: empty gradients and the call's count, on
+    its shards split by ``split`` (``flash_attention.Split``; None: the
+    whole call)."""
+    b, h, sq, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    shape = (b, h, k.shape[1], sq, k.shape[2], d)
+    if split is not None:
+        shape = split.local_shape(shape)
+    meta.record("flash_attention_bwd",
+                split.busiest(flops, shape, causal) if split else
+                flops(shape, causal), nbytes(shape, q.dtype))
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def _meta_sharded(q, k, v, o, lse, do, causal: bool):
+    """The meta route on DTensors: each rank's shards, laid out as the
+    forward's (``flash_attention.Split``), through ``_meta``."""
+    split = Split(q, k)
+
+    def body(ql, kl, vl, _o, _lse, _do):
+        return _meta(ql, kl, vl, causal, split)
+    return meta.local(body, (q, k, v, o, lse, do),
+                      (split.q, split.kv, split.kv, split.q, split.q,
+                       split.q), (split.q, split.dkv, split.dkv))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, causal: bool = True
@@ -195,13 +227,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     if q.device.type == "meta":
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash_attention_bwd: head dim {d} not in "
-                             f"{HEAD_DIMS}")
-        shape = (b, h, k.shape[1], sq, k.shape[2], d)
-        meta.record("flash_attention_bwd", flops(shape, causal),
-                    nbytes(shape, q.dtype))
-        return tuple(torch.empty_like(t) for t in (q, k, v))
+        if is_sharded(q):
+            return _meta_sharded(q, k, v, o, lse, do, causal)
+        return _meta(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")

@@ -8,11 +8,21 @@ dtypes and reports the call's operations and bytes, counted by its
 module's ``flops`` and ``nbytes``, to every counter that ``counting``
 has made active (``launch/cost_analysis.StepCost``).  A dry run walks a
 step this way.  The ``cpu`` and ``cuda`` routes do not come here.
+
+On a walked mesh (``launch/mesh.walked_mesh``) the wrapper is given
+DTensors.  It then runs its meta route under DTensor's ``local_map``
+(``local``), on each rank's shards laid out by the sharding layer's
+rules (``sharding/logical.placements_of``: the batch over ``pod`` and
+``data``, the heads over ``model``), so that the count it reports is
+one device's.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List
+from typing import Callable, Iterator, List, Sequence
+
+from torch.distributed.tensor import Placement
+from torch.distributed.tensor.experimental import local_map
 
 #: the counters a meta call reports to; a list shared by every thread,
 #: so that a backward run on autograd's worker threads reports too
@@ -34,3 +44,21 @@ def counting(counter) -> Iterator:
         yield counter
     finally:
         _ACTIVE.remove(counter)
+
+
+def local(fn: Callable, args: Sequence, in_places: Sequence,
+          out_places) -> object:
+    """``fn`` on each rank's local shards of the DTensors ``args``,
+    redistributed first to ``in_places`` (DTensor's ``local_map``); its
+    outputs are DTensors of ``out_places``."""
+    def one(p):            # one tensor's placements: a list, not a tuple
+        return None if p is None else list(p)
+    if out_places and isinstance(out_places[0], Placement):
+        out_places = one(out_places)
+    else:
+        out_places = tuple(one(p) for p in out_places)
+    return local_map(fn, out_placements=out_places,
+                     in_placements=tuple(one(p) for p in in_places),
+                     redistribute_inputs=True,
+                     device_mesh=args[0].device_mesh)(*args)
+

@@ -16,6 +16,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import Partial
+
+from repro_torch.sharding.logical import (current_mesh, is_sharded,
+                                          placements_of)
 
 from . import build, meta
 
@@ -70,10 +74,31 @@ def nbytes(shape, dtype) -> int:
         + 4 * B * H * nc * l + 4 * B * nc * l * H * P
 
 
+def split(x: torch.Tensor, out: bool = False):
+    """The placements of x, a, b and c over a walked mesh, by the
+    sharding layer's rules (``logical.placements_of``: the batch over
+    ``pod`` and ``data``, the heads over ``model`` when they divide it,
+    b and c whole on each device), or with ``out`` of the gradients dx,
+    da, db and dc (db and dc partial sums over the split heads)."""
+    B, nc, l, H, _ = x.shape
+    xs = placements_of(x.shape, ("batch", None, None, "heads", None))
+    as_ = placements_of((B, H, nc, l), ("batch", "heads", None, None))
+    bs = placements_of((B, nc, l, 1), ("batch", None, None, None))
+    if out and xs != placements_of(x.shape, ("batch",) + (None,) * 4):
+        bs = tuple(Partial() if n == "model" else q
+                   for q, n in zip(bs, current_mesh().axis_names))
+    return xs, as_, bs, bs
+
+
 def _meta(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The meta route: y empty, the call's operations and bytes
     reported (``kernels/meta.py``); a chunk above MAX_CHUNK raises, as a
-    launch does."""
+    launch does.  On DTensors (a walked mesh), each rank's shards
+    (``split``) through this route."""
+    if is_sharded(x):
+        places = split(x)
+        return meta.local(lambda xl, bl: _meta(xl, bl), (x, b),
+                          (places[0], places[2]), places[0])
     B, nc, l, H, P = x.shape
     if l > MAX_CHUNK:
         raise ValueError(f"ssd_chunk: chunk length {l} > {MAX_CHUNK}")

@@ -32,8 +32,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.sharding.logical import is_sharded
+
 from . import build, meta
-from .ssd_chunk import _DTYPES, MAX_CHUNK, _check
+from .ssd_chunk import _DTYPES, MAX_CHUNK, _check, split
 
 #: repro_ssd_chunk_bwd(x, a, b, c, dy, dx, da, db, dc, scratch, B, nc, l,
 #: H, N, hg, dtype, stream)
@@ -287,6 +289,11 @@ def ssd_chunk_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_chunk_bwd_plain(x, a, b, c, dy)
     if x.device.type == "meta":
+        if is_sharded(x):
+            places = split(x)
+            return meta.local(
+                lambda *ts: ssd_chunk_bwd(*ts), (x, a, b, c, dy),
+                places + (places[0],), split(x, out=True))
         B, nc, l, H, P = x.shape
         if l > MAX_CHUNK or P > MAX_HEAD_DIM:
             raise ValueError(f"ssd_chunk_bwd: chunk length {l} (at most "

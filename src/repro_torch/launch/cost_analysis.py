@@ -29,8 +29,19 @@ real one -- and counts
     optimizer state, batch or cache, the counterpart of
     ``memory_analysis``'s ``argument_size_in_bytes``;
   * **collectives** (``CollectiveStats``): the reference's per-op wire
-    multipliers (``wire_bytes``).  The port's steps run on one device
-    and run none, so on a one-device mesh the term is 0.
+    multipliers (``wire_bytes``) over each collective's local result
+    and group size.  On a one-device mesh a step runs none and the term
+    is 0.
+
+On a walked mesh (``launch/mesh.walked_mesh``) the step's tensors are
+DTensors, and the mode sees each op twice: first with the DTensors, at
+their global shapes, then, from inside DTensor's dispatch, as the ops a
+rank runs on its local shards and the ``_c10d_functional`` collectives
+(and DTensor's ``_dtensor.shard_dim_alltoall``) that redistribute them.
+The counter hands the first back to DTensor uncounted and counts the
+second, so every total is per device.  The ops that DTensor's sharding
+propagation runs on fake tensors to learn an output's global shape are
+not counted either.
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import conv_flop_count, flop_registry
 
 from repro_torch.kernels import meta as _meta
+from repro_torch.sharding.logical import is_sharded
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -56,6 +68,20 @@ _FREE = {_aten.empty.memory_format, _aten.empty_strided.default,
          _aten.empty_like.default, _aten.new_empty.default,
          _aten.new_empty_strided.default, _aten._unsafe_view.default,
          _aten.lift_fresh.default}
+#: the functional collectives DTensor issues -> the reference's op names
+#: (an all-gather's and a reduce-scatter's group size is an argument;
+#: every one names its group last among its positional arguments)
+_COLLECTIVE_OPS = {
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_dtensor.shard_dim_alltoall": "all-to-all",
+}
+#: functional-collective ops that move no data (they wait on, or wrap,
+#: a collective's result)
+_COLLECTIVE_FREE = {"_c10d_functional.wait_tensor",
+                    "_c10d_functional._wrap_tensor_autograd"}
 
 
 def wire_bytes(op: str, result_bytes: float,
@@ -123,6 +149,19 @@ def _conv_backward_flops(args, out) -> int:
     return count
 
 
+def _group_size(args) -> int:
+    """The size of the process group a functional collective names (its
+    last string argument)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = [a for a in args if isinstance(a, str)][-1]
+    return _resolve_process_group(name).size()
+
+
+def _is_fake(t) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def _tensor_bytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -143,7 +182,8 @@ class StepCost(TorchDispatchMode):
     StepCost() as cost:``, aten ops and the kernels' meta calls apart:
     ``cost.flops``, ``cost.hbm_bytes``; ``aten_flops`` / ``aten_bytes``
     by op, ``kernel_flops`` / ``kernel_bytes`` / ``kernel_calls`` by
-    kernel; ``collectives`` (none on one device)."""
+    kernel; ``collectives`` (none on one device).  On a walked mesh
+    every count is one device's."""
 
     def __init__(self):
         super().__init__()
@@ -188,7 +228,29 @@ class StepCost(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        operands, _ = tree_flatten((args, kwargs))
+        if any(is_sharded(t) for t in operands):
+            # DTensor's own dispatch runs the local ops and collectives,
+            # which come back here
+            return NotImplemented
+        if any(_is_fake(t) for t in operands):
+            return func(*args, **kwargs)    # sharding propagation
         packet = func._overloadpacket
+        name = str(packet)
+        if name in _COLLECTIVE_FREE:
+            return func(*args, **kwargs)
+        if name in _COLLECTIVE_OPS or name.startswith("_c10d_functional."):
+            if name not in _COLLECTIVE_OPS:
+                raise NotImplementedError(f"StepCost: collective {name}")
+            out = func(*args, **kwargs)
+            result = sum(_tensor_bytes(t) for t in tree_flatten(out)[0]
+                         if isinstance(t, torch.Tensor))
+            self.collectives.add(_COLLECTIVE_OPS[name], wire_bytes(
+                _COLLECTIVE_OPS[name], result, _group_size(args)))
+            self.aten_bytes[name] += result + sum(
+                _tensor_bytes(t) for t in operands
+                if isinstance(t, torch.Tensor))
+            return out
         if packet not in flop_registry:
             # a composite op counts as what it decomposes into
             with self:
@@ -196,14 +258,12 @@ class StepCost(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
-        name = str(packet)
         if packet is _aten.convolution_backward:
             self.aten_flops[name] += _conv_backward_flops(args, out)
         elif packet in flop_registry:
             self.aten_flops[name] += flop_registry[packet](
                 *args, **kwargs, out_val=out)
         if not func.is_view and func not in _FREE:
-            operands, _ = tree_flatten((args, kwargs))
             results, _ = tree_flatten(out)
             self.aten_bytes[name] += sum(
                 _tensor_bytes(t) for t in operands + results

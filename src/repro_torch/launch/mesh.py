@@ -9,18 +9,33 @@ do), and raises when the mesh wants more devices than there are: on one
 card only 1 x 1 is real.  ``make_production_mesh`` gives the
 reference's 16 x 16 and 2 x 16 x 16 pods as abstract meshes.
 
+``walked_mesh`` gives a mesh of any size that a step can run on, on the
+``meta`` device: it initialises torch's ``fake`` process-group backend
+with one rank for each mesh point, all in this process, and builds a
+``DeviceMesh`` with the reference's axis names over it.  DTensor then
+propagates every tensor's sharding over that mesh and issues the
+collectives each op needs, which the fake group takes without moving a
+byte (``launch/dryrun.py`` counts them).  The group is destroyed when
+the block exits, also on error.
+
 Kept as functions, as the reference keeps them: importing this module
 touches no device.  ``host_shard``'s rank and world size come from
-``torch.distributed`` when a process group is initialised.
+``torch.distributed`` when a process group is initialised, except the
+walked mesh's fake group: during a walk a host is rank 0 of 1.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, TypeVar
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, \
+    TypeVar
 
 import torch
 
 _T = TypeVar("_T")
+#: ``active``: the fake process group of a ``walked_mesh`` is initialised
+_WALK = threading.local()
 
 
 @dataclass(frozen=True)
@@ -31,6 +46,9 @@ class Mesh:
     axis_sizes: Tuple[int, ...]
     #: the devices spanned, one per mesh point; None for an abstract mesh
     devices: Optional[Tuple[torch.device, ...]] = None
+    #: a walked mesh's ``DeviceMesh`` over a fake process group (its
+    #: tensors on ``meta``); None otherwise
+    device_mesh: Optional[Any] = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -54,7 +72,13 @@ class Mesh:
 
     @property
     def abstract(self) -> bool:
-        return self.devices is None
+        """Specs only: no devices and no walked ``DeviceMesh``."""
+        return self.devices is None and self.device_mesh is None
+
+    @property
+    def walked(self) -> bool:
+        """A ``walked_mesh``: DTensors on ``meta`` over a fake group."""
+        return self.device_mesh is not None
 
 
 def _local_devices(device) -> List[torch.device]:
@@ -88,16 +112,66 @@ def make_mesh(dp: int, tp: int, pods: int = 1, device=None) -> Mesh:
     if n > len(devices):
         raise ValueError(f"a {' x '.join(map(str, sizes))} mesh needs {n} "
                          f"devices; {len(devices)} {devices[0].type} "
-                         f"device(s) here")
+                         f"device(s) here (walked_mesh walks a step over "
+                         f"a mesh of any size on meta)")
     return Mesh(names, sizes, tuple(devices[:n]))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16 x 16 = 256 chips a pod; 2 pods = 512 chips: abstract meshes,
-    for specs only (no machine here has their devices)."""
+    for specs (``walked_mesh`` walks a step over them)."""
     if multi_pod:
         return Mesh(("pod", "data", "model"), (2, 16, 16))
     return Mesh(("data", "model"), (16, 16))
+
+
+def axes_for(sizes: Sequence[int]) -> Tuple[str, ...]:
+    """The reference's axis names for a mesh of ``sizes``: (data,
+    model), or (pod, data, model)."""
+    if len(sizes) == 3:
+        return ("pod", "data", "model")
+    if len(sizes) == 2:
+        return ("data", "model")
+    raise ValueError(f"a mesh of sizes {tuple(sizes)}: 2 or 3 axes")
+
+
+@contextlib.contextmanager
+def walked_mesh(sizes: Sequence[int]) -> Iterator[Mesh]:
+    """A mesh of ``sizes`` (axes named as ``axes_for``) that a step runs
+    on as DTensors on ``meta``: torch's ``fake`` process group of one
+    rank a mesh point, initialised here, in this process, and destroyed
+    on exit, also on error.
+
+    The ``DeviceMesh``'s device type is ``cuda`` (its tensors stay on
+    ``meta``, and no CUDA device is needed), so that a Shard -> Shard
+    redistribution is DTensor's all-to-all
+    (``_dtensor.shard_dim_alltoall``), as on cards: on a ``cpu`` mesh
+    DTensor swaps it for an all-gather and a chunk (Gloo has no
+    all-to-all), which the counter would record instead.  Raises if a
+    process group is already initialised: the fake group must be the
+    default one."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    # registers the ``fake`` backend with torch.distributed
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    sizes = tuple(int(s) for s in sizes)
+    names = axes_for(sizes)
+    if dist.is_initialized():
+        raise RuntimeError("walked_mesh: a process group is already "
+                           "initialised")
+    n = 1
+    for s in sizes:
+        n *= s
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=n)
+    _WALK.active = True
+    try:
+        dm = DeviceMesh("cuda", torch.arange(n).reshape(sizes),
+                        mesh_dim_names=names)
+        yield Mesh(names, sizes, device_mesh=dm)
+    finally:
+        _WALK.active = False
+        dist.destroy_process_group()
 
 
 def mesh_axis_sizes(mesh) -> dict:
@@ -114,8 +188,11 @@ def n_chips(mesh) -> int:
 
 def _process_rank_and_count() -> Tuple[int, int]:
     """(rank, world size) of the initialised ``torch.distributed``
-    process group, else (0, 1)."""
+    process group, else (0, 1); (0, 1) too during a ``walked_mesh``,
+    whose fake group has no hosts."""
     import torch.distributed as dist
+    if getattr(_WALK, "active", False):
+        return 0, 1
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1

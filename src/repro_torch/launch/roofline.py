@@ -10,7 +10,10 @@ derives, per (arch x shape x mesh), on the card's peaks
     collective term = collective wire bytes / link bytes a second
 
 using the probe-extrapolated totals.  The records hold per-device
-numbers, so the terms divide by one device.  Also reports MODEL_FLOPS =
+numbers, so the terms divide by one device.  The link is the card's
+NVLink on a mesh that fits one node of ``CARDS_PER_NODE`` cards, else
+the node's network (``link_bytes_per_s``): a 16 x 16 mesh spans 32
+nodes.  Also reports MODEL_FLOPS =
 6*N*D (dense) or 6*N_active*D (MoE) and the usefulness ratio
 MODEL_FLOPS / counted FLOPs.
 
@@ -35,7 +38,13 @@ from repro_torch.core.metrics import roofline
 DRYRUN_DIR = Path(__file__).resolve().parents[3] / "experiments" \
     / "dryrun_torch"
 #: the meshes the port's dry run walks
-MESHES = ("h100_1x1",)
+MESHES = ("h100_1x1", "pod_16x16", "multipod_2x16x16")
+#: cards one node joins by NVLink (a DGX H100 / HGX H100 8-GPU board)
+CARDS_PER_NODE = 8
+#: one card's share of the network between nodes, one direction: a DGX
+#: H100 has one 400 Gb/s ConnectX-7 port a GPU for its compute fabric
+#: (NVIDIA DGX H100 user guide, "Hardware overview"), 400e9 / 8 bytes
+NODE_LINK_BYTES_PER_S = 50e9
 
 
 @dataclass(frozen=True)
@@ -69,6 +78,15 @@ def peaks_for(name: str) -> CardPeaks:
         raise KeyError(f"no peaks for card {name!r}; the table has "
                        f"{sorted(PEAKS)}")
     return PEAKS[key]
+
+
+def link_bytes_per_s(peaks: "CardPeaks", chips: int) -> float:
+    """The bytes a second one card sends over the links a mesh of
+    ``chips`` cards uses: NVLink within a node, the node's network
+    (``NODE_LINK_BYTES_PER_S``) once the mesh spans nodes."""
+    if chips > CARDS_PER_NODE:
+        return NODE_LINK_BYTES_PER_S
+    return peaks.link_bytes_per_s
 
 
 @dataclass
@@ -156,7 +174,7 @@ def cell_roofline(arch: str, shape: str, mesh: str,
                      _total(rec, "collective_wire_bytes"), 1,
                      peak_flops=peaks.bf16_flops,
                      hbm_gbs=peaks.hbm_bytes_per_s,
-                     link_gbs=peaks.link_bytes_per_s)
+                     link_gbs=link_bytes_per_s(peaks, chips))
     mf = model_flops(cfg, shape)
     counted_global = flops * chips
     return CellRoofline(

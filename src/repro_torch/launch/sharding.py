@@ -26,9 +26,12 @@ as the reference does with ``scan_layers=False``, so it has no such
 dimension to shard: its specs equal that layout's.
 
 Specs are computed for any mesh, abstract ones included (the 16 x 16
-and 2 x 16 x 16 production meshes).  ``place`` puts tensors on a real
-mesh: on a one-device mesh each whole on that device; a mesh of more
-devices raises, since the port runs a step on one device.
+and 2 x 16 x 16 production meshes).  ``place`` puts tensors on a mesh:
+on a one-device mesh each whole on that device; on a walked mesh
+(``mesh.walked_mesh``) a ``meta`` tensor becomes a DTensor with its
+spec's placements (``logical.placements``), each rank holding its
+shard's shape; a real mesh of more devices raises, since the port runs
+a step on one card.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.launch.mesh import Mesh, mesh_axis_sizes
 from repro_torch.sharding.logical import AxisRules
 from repro_torch.sharding.logical import PartitionSpec as P
+from repro_torch.sharding.logical import placements
 
 #: a module (its ``named_parameters()``) or a nested name -> tensor dict
 #: (an optimizer state)
@@ -182,16 +186,26 @@ class NamedSharding:
     spec: P
 
     def place(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` on the mesh: whole on its one device.  An abstract mesh
-        or a mesh of more devices raises: the port runs a step on one
-        device and has no sharded tensor."""
+        """``t`` on the mesh: whole on its one device, or on a walked
+        mesh a DTensor of the spec's placements (``t`` on ``meta``).  An
+        abstract mesh or a real mesh of more devices raises: the port
+        runs a step on one card."""
+        if self.mesh.walked:
+            from torch.distributed.tensor import distribute_tensor
+            if t.device.type != "meta":
+                raise ValueError(f"a walked mesh places meta tensors, not "
+                                 f"{t.device}")
+            return distribute_tensor(
+                t, self.mesh.device_mesh,
+                list(placements(self.spec, self.mesh)))
         if self.mesh.abstract:
             raise ValueError("an abstract mesh places nothing: it only "
                              "computes specs")
         if self.mesh.size > 1:
             raise NotImplementedError(
                 f"placing on a mesh of {self.mesh.size} devices "
-                f"({self.mesh.shape}): the port runs a step on one device")
+                f"({self.mesh.shape}): the port runs a step on one card "
+                f"(walked_mesh walks one on meta)")
         return t.to(self.mesh.devices[0])
 
 
@@ -213,10 +227,16 @@ def place(tree: Params, shardings: Dict[str, Any]) -> Params:
     nesting."""
     if isinstance(tree, nn.Module):
         with torch.no_grad():
-            for name, p in tree.named_parameters():
+            for name, p in list(tree.named_parameters()):
                 moved = shardings[name].place(p.data)
-                if moved is not p.data:
+                if moved is p.data:
+                    continue
+                if type(moved) is type(p.data):
                     p.data = moved
+                else:                   # a DTensor: a new parameter
+                    owner, _, leaf = name.rpartition(".")
+                    tree.get_submodule(owner)._parameters[leaf] = \
+                        nn.Parameter(moved, requires_grad=p.requires_grad)
         return tree
     return {k: place(v, shardings[k]) if isinstance(v, dict)
             else shardings[k].place(v) for k, v in tree.items()}

@@ -3,7 +3,9 @@ reference's ``launch/steps.py``).
 
 A step runs on the CUDA device unless ``make_*_step`` is given another
 ``device``; without a card and without ``device="cpu"`` it raises.  The
-prefill and serve steps run under ``torch.inference_mode``.  The train
+prefill and serve steps run under ``torch.inference_mode`` (under
+``torch.no_grad`` when given DTensors: DTensor fails some ops under
+inference mode).  The train
 step takes the gradient of ``api.loss_fn`` by autograd (on the card the
 attention's gradient is the ``flash_attention`` backward kernel, the
 SSD's the ``ssd_chunk`` backward kernel) and
@@ -27,6 +29,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.models import api
 from repro_torch.optim import optimizers as opt
+from repro_torch.sharding.logical import is_sharded
 
 Params = Any
 
@@ -119,6 +122,17 @@ def model_batch(cfg: ModelConfig, batch: Dict[str, Any], device
     return out
 
 
+def _as_param(g, p: torch.Tensor):
+    """A DTensor gradient ``g`` (a step walked over a mesh) laid out as
+    its parameter ``p``: the partial sums of an FSDP-sharded weight's
+    gradient reduce-scattered once, here, as jit's out-shardings ask,
+    and not again at each use in the clip and the update.  Any other
+    gradient as it is."""
+    if is_sharded(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ModelConfig,
                     optimizer: Optional[opt.Optimizer] = None,
                     clip_norm: float = 1.0, accum_steps: int = 1,
@@ -144,7 +158,8 @@ def make_train_step(cfg: ModelConfig,
     def grads_of(params: nn.Module, names, leaves, batch):
         loss = api.loss_fn(cfg, params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach().float(), dict(zip(names, grads))
+        return loss.detach().float(), dict(zip(
+            names, (_as_param(g, p) for g, p in zip(grads, leaves))))
 
     def train_step(params: nn.Module, opt_state: Params,
                    batch: Dict[str, Any]):
@@ -184,13 +199,22 @@ def make_train_step(cfg: ModelConfig,
     return train_step
 
 
+def _no_grad(t: torch.Tensor):
+    """``torch.inference_mode``, or ``torch.no_grad`` for a DTensor
+    ``t`` (a step walked over a mesh, ``launch/dryrun.py``): DTensor's
+    dispatch of ``Tensor.to`` fails under inference mode."""
+    if is_sharded(t):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
 def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
     """Forward logits over the full prompt (inference prefill)."""
     device = resolve_device(device)
     mod = api._mod(cfg)
 
     def prefill_step(params: nn.Module, batch: Dict[str, torch.Tensor]):
-        with torch.inference_mode():
+        with _no_grad(batch["tokens"]):
             tokens = batch["tokens"].to(device)
             if cfg.family == "encdec":
                 return mod.forward(cfg, params, tokens,
@@ -212,7 +236,7 @@ def make_serve_step(cfg: ModelConfig, device=None) -> Callable:
 
     def serve_step(params: nn.Module, cache: Dict[str, torch.Tensor],
                    token: torch.Tensor, pos: torch.Tensor):
-        with torch.inference_mode():
+        with _no_grad(token):
             return api.serve_step(cfg, params, cache, token.to(device),
                                   pos.to(device))
 

@@ -112,12 +112,14 @@ def _cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = enc_out.shape
     nkv, h = cfg.n_kv_heads, cfg.hdim
-    k = L._mm(enc_out, p["wk"]).reshape(b, s, nkv, h)
-    v = L._mm(enc_out, p["wv"]).reshape(b, s, nkv, h)
+    k = L.split_heads(L._mm(enc_out, p["wk"]), nkv, h, "kv_heads")
+    v = L.split_heads(L._mm(enc_out, p["wv"]), nkv, h, "kv_heads")
     if cfg.qkv_bias:
         k = k + p["bk"].reshape(nkv, h)
         v = v + p["bv"].reshape(nkv, h)
-    return k, v
+    # as ``layers._qkv`` constrains the self-attention's keys and values
+    return (L.constrain(k, ("batch", "seq", "kv_heads", None)),
+            L.constrain(v, ("batch", "seq", "kv_heads", None)))
 
 
 def dec_block_fwd(cfg: ModelConfig, p, x: torch.Tensor, pos: torch.Tensor,

@@ -17,7 +17,11 @@ floats, no host sync), the top-k order on ties (lower expert first, as
 with one spare row for dropped assignments, and the gated combine.  The
 expert products are batched matrix products, as in the reference, which
 runs them outside any kernel.  The reference's ``constrain`` sharding
-annotations are dropped (one device).
+annotations are kept (the identity on one device).  On a mesh walked by
+the dry run, the capacity scatter and the combine's gather, which
+DTensor has no rule for, run on each rank's dispatch groups under
+``local_map`` (``_scatter``, ``_gather``): the groups over ``data``, as
+the buffer's constraint lays them, so that neither crosses a shard.
 """
 from __future__ import annotations
 
@@ -29,9 +33,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import meta
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import Params
+from repro_torch.sharding.logical import (constrain, is_sharded,
+                                          placements_of, reshard)
 
 
 # ---------------------------------------------------------------------- #
@@ -123,9 +130,13 @@ def expert_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     (g = dispatch groups)."""
     if x.dim() == 4:
         eq_in, eq_out = "egcd,edf->egcf", "egcf,efd->egcd"
+        ax_h = ("experts", "expert_group", None, "ff")
+        ax_o = ("experts", "expert_group", None, None)
     else:
         eq_in, eq_out = "ecd,edf->ecf", "ecf,efd->ecd"
-    h = torch.einsum(eq_in, x, p["w_in"])
+        ax_h = ("experts", "expert_cap", "ff")
+        ax_o = ("experts", "expert_cap", None)
+    h = constrain(torch.einsum(eq_in, x, p["w_in"]), ax_h)
     if cfg.act in ("swiglu", "geglu"):
         g = torch.einsum(eq_in, x, p["w_gate"])
         gate = F.silu(g) if cfg.act == "swiglu" else \
@@ -133,7 +144,7 @@ def expert_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
         h = gate * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum(eq_out, h, p["w_out"])
+    return constrain(torch.einsum(eq_out, h, p["w_out"]), ax_o)
 
 
 def dispatch_shape(cfg: ModelConfig, t: int) -> Tuple[int, int]:
@@ -164,27 +175,29 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
     t = b * s
     k = m.top_k
     e = m.n_experts
-    xf = x.reshape(t, d)
+    # the tokens split as the buffer's constraint splits the groups
+    # (over ``data``), before the reshape to groups: DTensor cannot
+    # split 16 groups over the 32 token shards of ``pod`` x ``data``
+    xf = constrain(x.reshape(t, d), ("expert_group", None))
     logits = xf.float() @ p["router"]
 
     g, capacity = dispatch_shape(cfg, t)
     tg = t // g
     eid, slot, keep, gate = route(logits.reshape(g, tg, e), k, capacity)
 
-    tok_idx = torch.arange(tg * k, device=x.device) // k
-    xs = xf.reshape(g, tg, d)[:, tok_idx]                   # [g, tg*k, d]
+    # each token k times, as a broadcast (DTensor's rule for an index's
+    # gradient fails in some torch releases)
+    xs = xf.reshape(g, tg, 1, d).expand(g, tg, k, d).reshape(
+        g, tg * k, d)                                       # [g, tg*k, d]
     xs = torch.where(keep[..., None], xs, 0)
     slot_c = torch.where(keep, slot, capacity)              # drop bucket
-    grp = torch.arange(g, device=x.device)[:, None].expand(g, tg * k)
-    buf = torch.zeros((g, e, capacity + 1, d), dtype=x.dtype,
-                      device=x.device)
-    buf.index_put_((grp, eid, slot_c), xs)
-    buf = buf[:, :, :capacity]
+    buf = _scatter(xs, eid, slot_c, e, capacity)
+    buf = constrain(buf, ("expert_group", "experts", None, None))
 
     out_buf = expert_ffn(cfg, p["experts"],
                          buf.transpose(0, 1))               # [e,g,c,d]
     # combine: each assignment's output, gathered back
-    y = out_buf[eid, grp, torch.clamp(slot, max=capacity - 1)]
+    y = _gather(out_buf, eid, torch.clamp(slot, max=capacity - 1))
     y = y * (gate * keep).to(y.dtype)[..., None]            # [g, tg*k, d]
     out = torch.sum(y.reshape(g, tg, k, d), dim=2).reshape(b, s, d)
 
@@ -199,7 +212,48 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
          * keep.reshape(t * k)[:, None]).reshape(t, k, e).sum(1), dim=0)
     frac_probs = torch.mean(probs, dim=0)
     aux = e * torch.sum(frac_tokens * frac_probs)
-    return out, aux
+    # the reference's constraint, its gradient back in the groups'
+    # layout (over ``data``), which the reshape from groups can take apart
+    return reshard(out, ("batch", "seq", "embed")), aux
+
+
+def _scatter(xs: torch.Tensor, eid: torch.Tensor, slot: torch.Tensor,
+             e: int, capacity: int) -> torch.Tensor:
+    """Each group's kept assignments xs [g, t, d] written into its
+    per-expert capacity buffer at (eid, slot) [g, t]: [g, e, capacity,
+    d] (``slot == capacity``, a dropped one, lands in a spare row that
+    is sliced off).  On DTensors, each rank's groups (``_groups``)."""
+    if is_sharded(xs):
+        places = _groups(eid.shape[0], 0)
+        return meta.local(lambda a, b, c: _scatter(a, b, c, e, capacity),
+                          (xs, eid, slot), (places,) * 3, places)
+    g, t, d = xs.shape
+    grp = torch.arange(g, device=xs.device)[:, None].expand(g, t)
+    buf = torch.zeros((g, e, capacity + 1, d), dtype=xs.dtype,
+                      device=xs.device)
+    buf.index_put_((grp, eid, slot), xs)
+    return buf[:, :, :capacity]
+
+
+def _gather(out_buf: torch.Tensor, eid: torch.Tensor, slot: torch.Tensor
+            ) -> torch.Tensor:
+    """Each assignment's row of the experts' outputs out_buf [e, g, c,
+    d] at (eid, its group, slot) [g, t]: [g, t, d].  On DTensors, each
+    rank's groups (``_groups``), the experts whole."""
+    if is_sharded(out_buf):
+        places = _groups(eid.shape[0], 0)
+        return meta.local(_gather, (out_buf, eid, slot),
+                          (_groups(eid.shape[0], 1), places, places), places)
+    g, t = eid.shape
+    grp = torch.arange(g, device=eid.device)[:, None].expand(g, t)
+    return out_buf[eid, grp, slot]
+
+
+def _groups(g: int, dim: int):
+    """The placements of a tensor whose dim ``dim`` holds the ``g``
+    dispatch groups: split as the buffer's constraint splits them
+    (``expert_group``), whole on every other axis."""
+    return placements_of((1,) * dim + (g,), (None,) * dim + ("expert_group",))
 
 
 # ---------------------------------------------------------------------- #

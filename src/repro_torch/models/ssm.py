@@ -31,9 +31,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import meta
 from repro_torch.kernels.ssd_chunk import ssd_chunk
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Params
+from repro_torch.sharding.logical import (constrain, is_sharded,
+                                          placements_of, reshard)
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
@@ -114,6 +117,17 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask.tril(0), out, -math.inf)
 
 
+def _heads(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with its batch (dim 0) and its heads (``dim``) split as the
+    reference's constraint on the SSD's input splits them, its gradient
+    too: as XLA propagates that constraint through the SSD's stages
+    (2-4), which DTensor would otherwise lay out its own way, down to a
+    strided shard of the einsums' folded batch (minutes of planning)."""
+    axes = [None] * t.dim()
+    axes[0], axes[dim] = "batch", "heads"
+    return constrain(t, tuple(axes))
+
+
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         chunk: int, init_state: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,8 +154,9 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
     # (2) per-chunk end states
     decay_states = torch.exp(a_cum[..., -1:] - a_cum)         # [B,H,nc,l]
-    xw = xc.float() * decay_states.permute(0, 2, 3, 1)[..., None]
-    states = torch.einsum("bcln,bclhp->bchpn", bc.float(), xw)
+    xw = _heads(xc.float() * decay_states.permute(0, 2, 3, 1)[..., None],
+                3)
+    states = _heads(torch.einsum("bcln,bclhp->bchpn", bc.float(), xw), 2)
 
     # (3) inter-chunk recurrence (the carried scan over chunks)
     carry = (torch.zeros((B, H, P, N), dtype=states.dtype, device=x.device)
@@ -151,11 +166,12 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     for i in range(nc):
         prev.append(carry)                    # the state *before* chunk i
         carry = carry * chunk_decay[:, :, i, None, None] + states[:, i]
-    prev_states = torch.stack(prev, dim=1)                    # [B,nc,H,P,N]
+    prev_states = _heads(torch.stack(prev, dim=1), 2)         # [B,nc,H,P,N]
 
     # (4) state->output conversion
     state_decay = torch.exp(a_cum)                            # [B,H,nc,l]
-    y_off = torch.einsum("bcln,bchpn->bclhp", cc.float(), prev_states) \
+    y_off = _heads(torch.einsum("bcln,bchpn->bclhp", cc.float(),
+                                prev_states), 3) \
         * state_decay.permute(0, 2, 3, 1)[..., None]
 
     y = (y_diag + y_off).reshape(B, S, H, P)
@@ -166,7 +182,10 @@ def _conv1d(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             state: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal depthwise conv over time. xbc: [B, S, C]; w: [K, C] (the
     reference's layout; torch's depthwise weight is [C, 1, K], and both
-    are cross-correlations)."""
+    are cross-correlations).  On DTensors (a walked mesh), each rank's
+    channels through this function (``_conv1d_sharded``)."""
+    if is_sharded(xbc):
+        return _conv1d_sharded(xbc, w, bias, state)
     K = w.shape[0]
     if state is None:
         pad = torch.zeros((xbc.shape[0], K - 1, xbc.shape[2]),
@@ -179,15 +198,35 @@ def _conv1d(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return F.silu(out + bias)
 
 
+def _conv1d_sharded(xbc, w, bias, state):
+    """``_conv1d`` over a walked mesh: the channels over ``model`` where
+    they divide it (a depthwise conv keeps each channel apart, so no
+    collective; DTensor has no rule for a grouped convolution), the
+    batch over ``pod`` and ``data`` (``logical.placements_of``; the
+    channels take the rule of a width split over ``model``, ``ff``)."""
+    x_p = placements_of(xbc.shape, ("batch", None, "ff"))
+    w_p = placements_of(w.shape, (None, "ff"))
+    b_p = placements_of(bias.shape, ("ff",))
+    args, places = (xbc, w, bias), (x_p, w_p, b_p)
+    if state is not None:
+        args, places = args + (state,), places + (x_p,)
+    return meta.local(lambda *ts: _conv1d(*ts), args, places, x_p)
+
+
 def mamba_layer(cfg: ModelConfig, pr, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward.  x: [B, S, d_model]."""
     d_in, nh, p, n, conv_dim = dims(cfg)
     B, S, _ = x.shape
-    zxbcdt = x @ pr["w_in"]
+    # on a walked mesh whole over ``model`` for the split at uneven
+    # points, which DTensor can only take whole; its gradient goes back
+    # split as the product made it, so that w_in's gradient is not
+    # computed whole on every device
+    zxbcdt = reshard(x @ pr["w_in"], ("batch", "seq", None))
     z, xbc, dt = torch.split(zxbcdt, [d_in, conv_dim, nh], dim=-1)
     xbc = _conv1d(xbc, pr["conv_w"], pr["conv_b"])
     xs, b, c = torch.split(xbc, [d_in, n, n], dim=-1)
-    xs = xs.reshape(B, S, nh, p)
+    xs = constrain(L.split_heads(xs, nh, p, "heads"),
+                   ("batch", "seq", "heads", None))
 
     dt = F.softplus(dt.float() + pr["dt_bias"])                   # [B,S,nh]
     a = -torch.exp(pr["A_log"]) * dt                              # [B,S,nh]
@@ -201,7 +240,12 @@ def mamba_layer(cfg: ModelConfig, pr, x: torch.Tensor) -> torch.Tensor:
     # gated RMSNorm (mamba2's norm-before-out-proj)
     y = y * F.silu(z.float())
     y = L.rmsnorm({"scale": pr["norm"]}, y, cfg.norm_eps)
-    return y.to(x.dtype) @ pr["w_out"]
+    # not among the reference's constraints: without it DTensor carries
+    # w_out's row-parallel partial sum into the residual stream and on
+    # to the LM head, whose product it then repeats on every ``model``
+    # device (XLA's partitioner reduces it where the logits' constraint
+    # asks)
+    return constrain(y.to(x.dtype) @ pr["w_out"], ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------- #
@@ -242,7 +286,9 @@ def mamba_decode(cfg: ModelConfig, pr, x: torch.Tensor,
     y = y.reshape(B, 1, d_in)
     y = y * F.silu(z.float())
     y = L.rmsnorm({"scale": pr["norm"]}, y, cfg.norm_eps)
-    return y.to(x.dtype) @ pr["w_out"], new_state, new_conv
+    # as in ``mamba_layer``: not among the reference's constraints
+    return constrain(y.to(x.dtype) @ pr["w_out"],
+                     ("batch", "seq", "embed")), new_state, new_conv
 
 
 # ---------------------------------------------------------------------- #

@@ -18,6 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Params
+from repro_torch.sharding.logical import constrain
 
 
 # ---------------------------------------------------------------------- #
@@ -63,6 +64,10 @@ def init(cfg: ModelConfig, gen: Optional[torch.Generator],
 # ---------------------------------------------------------------------- #
 def block_fwd(cfg: ModelConfig, p, x: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
+    if cfg.seq_parallel:
+        # residual stream (and the norms) stay sequence-sharded; the
+        # blocks all-gather on entry and reduce-scatter on exit
+        x = constrain(x, ("batch", "sp", "embed"))
     x = x + L.attention(cfg, p["attn"], L.norm(cfg, p["ln1"], x), pos)
     x = x + L.ffn(cfg, p["ffn"], L.norm(cfg, p["ln2"], x))
     return x
@@ -75,6 +80,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     x = L.embed(cfg, params["embed"], tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        x = constrain(x, ("batch", "seq", "embed"))
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
     bf = L.remat(cfg, lambda blk, h: block_fwd(cfg, blk, h, pos))

@@ -7,9 +7,13 @@ A mapping is applied only when the dimension is divisible by the
 mesh-axis product, so e.g. granite's single KV head stays replicated
 instead of failing to shard over the 16-way model axis.
 
-The port runs a step on one device.  ``constrain`` is the identity with
-no mesh or a one-device mesh and raises on a mesh of more devices; the
-model code calls it nowhere (``models/layers.py``).  The specs
+``constrain`` is the counterpart of ``with_sharding_constraint``: the
+identity with no mesh or a one-device mesh; on a walked mesh
+(``launch/mesh.walked_mesh``: DTensors on ``meta`` over a fake process
+group) it redistributes a DTensor to its spec's placements
+(``placements``), which issues the collectives the change needs; on a
+real mesh of more devices it raises, since the port runs a step on one
+card.  The models call it where the reference does.  The specs
 themselves (``spec_for``, ``launch/sharding.py``) are computed for any
 mesh, abstract ones included.
 """
@@ -20,6 +24,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 _STATE = threading.local()
 
@@ -76,6 +81,11 @@ def set_rules(rules: Optional[AxisRules]) -> None:
     _STATE.rules = rules
 
 
+def current_rules() -> Optional[AxisRules]:
+    """The rules ``set_rules`` set, None when unset."""
+    return getattr(_STATE, "rules", None)
+
+
 def get_rules() -> AxisRules:
     return getattr(_STATE, "rules", None) or default_rules()
 
@@ -119,21 +129,102 @@ def spec_for(shape: Sequence[int],
     return P(*parts)
 
 
+def placements(spec: PartitionSpec, mesh) -> Tuple:
+    """DTensor's placements of ``spec`` on ``mesh``: one a mesh axis, in
+    the mesh's order, ``Shard(d)`` for the axis that tensor dim ``d``
+    lies over and ``Replicate()`` for the others.
+
+    A dim over several axes (the batch over ``("pod", "data")``) is
+    split by them major to minor in the spec's order, as jax splits it;
+    DTensor splits a dim by its mesh axes in the mesh's order, so a spec
+    whose axes run against the mesh's order raises."""
+    names = tuple(mesh.axis_names)
+    out: list = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        axes = () if part is None else \
+            (part,) if isinstance(part, str) else tuple(part)
+        at = [names.index(a) for a in axes]
+        if at != sorted(at):
+            raise ValueError(f"spec {spec}: dim {dim} over {axes}, against "
+                             f"the mesh's order {names}")
+        for i in at:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def placements_of(shape: Sequence[int],
+                  logical: Sequence[Optional[str]]) -> Tuple:
+    """The placements on the current mesh of a tensor of ``shape``
+    whose dims are named ``logical``, under the active rules."""
+    mesh = current_mesh()
+    return placements(spec_for(tuple(shape), logical, mesh), mesh)
+
+
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor (a step walked over a mesh)."""
+    return isinstance(x, DTensor)
+
+
 def constrain(x: torch.Tensor,
               logical: Sequence[Optional[str]]) -> torch.Tensor:
-    """``x`` itself under no mesh or a one-device mesh.  A mesh of more
-    devices raises: the port has no multi-device execution, and a
-    constraint it could not keep must not pass silently."""
+    """``x`` itself under no mesh or a one-device mesh.  On a walked
+    mesh, ``x`` redistributed to the placements of its spec under the
+    active rules (a plain tensor there counts as replicated), and its
+    gradient with it (``_Constrain``).  A real mesh of more devices
+    raises: the port runs a step on one device, and a constraint it
+    could not keep must not pass silently."""
     mesh = current_mesh()
     if mesh is None:
         return x
     if len(logical) != x.dim():
         raise ValueError(f"logical axes {logical} vs shape {tuple(x.shape)}")
-    n = 1
-    for s in mesh.shape.values():
-        n *= s
-    if n > 1:
-        raise NotImplementedError(
-            f"constrain on a mesh of {n} devices ({dict(mesh.shape)}): the "
-            f"port runs a step on one device")
-    return x
+    if not getattr(mesh, "walked", False):
+        n = 1
+        for s in mesh.shape.values():
+            n *= s
+        if n > 1:
+            raise NotImplementedError(
+                f"constrain on a mesh of {n} devices ({dict(mesh.shape)}): "
+                f"the port runs a step on one device (walked_mesh walks "
+                f"one on meta)")
+        return x
+    want = placements(spec_for(tuple(x.shape), logical, mesh), mesh)
+    if not is_sharded(x):
+        x = DTensor.from_local(x, mesh.device_mesh,
+                               [Replicate()] * len(want), run_check=False)
+    return _Constrain.apply(x, mesh.device_mesh, want, want)
+
+
+def reshard(x: torch.Tensor, logical: Sequence[Optional[str]]
+            ) -> torch.Tensor:
+    """A DTensor ``x`` on a walked mesh redistributed to its spec's
+    placements, and its gradient back to ``x``'s own placements (not to
+    the spec's, as ``constrain``'s is): for a reshape whose gradient
+    DTensor could only take apart in ``x``'s layout.  Anything else
+    (no walked mesh) is returned as it is."""
+    if not is_sharded(x):
+        return x
+    mesh = current_mesh()
+    want = placements(spec_for(tuple(x.shape), logical, mesh), mesh)
+    return _Constrain.apply(x, mesh.device_mesh, want, tuple(x.placements))
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``want``, and its gradient to
+    ``grad_want``.  ``constrain`` takes the two equal, as jax constrains
+    the cotangent of ``with_sharding_constraint`` to the same sharding:
+    a gradient that arrives as a partial sum is reduced there, also
+    where the forward had nothing to move."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want, grad_want):
+        ctx.mesh, ctx.want = mesh, grad_want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(ctx.mesh, ctx.want)
+        return grad, None, None, None
