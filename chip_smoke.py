@@ -1761,7 +1761,7 @@ PATH_KERNELS = {
                                   "flash_attention_bwd", "flash"),
     "flash_attention_bwd": PathKernel(
         BWD_MODULE, flash_attention_bwd_plain,
-        ("dsum_kernel", "dkdv_kernel", "dq_kernel"),
+        ("dsum_kernel", "split3_kernel", "dkdv_kernel", "dq_kernel"),
         _bwd_hold(bwd_err, flash_attention_bwd_scale,
                   lambda dt: BWD_ATOL[dt])),
     "ssd_chunk_bwd": PathKernel(
@@ -3097,13 +3097,14 @@ def _forward_lse(q, k, v, causal: bool):
             flash_attention_lse_plain(q, k, v, causal))
 
 
-def _drop_last_keys(n: int) -> Callable:
+def _drop_last_keys(n) -> Callable:
     """A fault of the backward kernel: it stops ``n`` keys early (all of
-    them where there are fewer), so the last keys' rows of dk and dv come
-    back zero and their terms are missing from dq."""
+    them where there are fewer; ``n`` an int or a function of the head
+    dim), so the last keys' rows of dk and dv come back zero and their
+    terms are missing from dq."""
     def fault(kernel: Callable) -> Callable:
         def faulty(q, k, v, o, lse, do, causal=True):
-            m = min(n, k.shape[2])
+            m = min(n(q.shape[-1]) if callable(n) else n, k.shape[2])
             sk = k.shape[2] - m
             dq, dk, dv = kernel(q, k[:, :, :sk], v[:, :, :sk], o, lse, do,
                                 causal)
@@ -3116,11 +3117,12 @@ def _drop_last_keys(n: int) -> Callable:
 
 #: planted faults of ``flash_attention_bwd`` that phase flash_grad's hold
 #: must catch at every case: the last key block of the bf16 route (128
-#: keys), the last key tile of the fp32 route's dK/dV pass (64), and the
-#: last 8 keys (at a causal sq = sk, keys seen by one to eight queries: the
+#: keys), the last key tile of the fp32 route's dQ pass (``fp32_tile``: 32
+#: keys at d 128, 64 below; its dK/dV items are 64 keys), and the last 8
+#: keys (at a causal sq = sk, keys seen by one to eight queries: the
 #: smallest gradients)
 BWD_FAULTS = {"drop_last_128_keys": _drop_last_keys(128),
-              "drop_key_tile": _drop_last_keys(64),
+              "drop_key_tile": _drop_last_keys(BWD_MODULE.fp32_tile),
               "drop_last_8_keys": _drop_last_keys(8)}
 
 
@@ -3141,8 +3143,9 @@ def bwd_registers(lib: str = "flash_attention_bwd") -> List[str]:
     """nvcc's register and spill lines of a backward kernel's launches
     (``PATH_KERNELS[lib].entries``), each named by its entry (from this
     process's build): the pass, the route (the flash backward's bf16
-    wgmma in namespace ``hopper``, fp32 3xTF32 mma.sync in ``tc32``;
-    otherwise by its element type) and the head dim where templated."""
+    wgmma in namespace ``hopper``, its fp32 wgmma on three bf16 parts in
+    ``bf16x3``; otherwise by its element type) and the head dim where
+    templated."""
     out, entry = [], ""
     for ln in build.BUILD_LOGS.get(lib, "").splitlines():
         if "Compiling entry function" in ln:
@@ -3150,7 +3153,7 @@ def bwd_registers(lib: str = "flash_attention_bwd") -> List[str]:
             for part in PATH_KERNELS[lib].entries:
                 if part in entry:
                     route = ("bf16 wgmma" if "hopper" in entry else
-                             "fp32 mma.sync" if "tc32" in entry else
+                             "fp32 bf16x3 wgmma" if "bf16x3" in entry else
                              "bf16" if "bfloat16" in entry else
                              "fp32" if re.search(r"I(f|Lb0E)", entry)
                              else "")
@@ -3222,14 +3225,12 @@ def phase_flash_grad(device, cases=FLASH_GRAD_CASES, reps: int = 10,
                  "bound_ms": bound, "bound_by": by, "bound_route": route,
                  "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, device,
                                             reps)}
-            # device ms of each pass in one profiled call (none on the CPU)
-            by_name = profile_step(lambda: flash_attention_bwd(*args),
-                                   device)["by_name"] \
+            # device ms of each pass in one call, from CUDA events around
+            # each launch (the dtype's route's passes: pass 1b runs in fp32
+            # only; a profile of the call here listed none of its
+            # kernels); none on the CPU
+            r["pass_ms"] = BWD_MODULE.flash_attention_bwd_launch_ms(*args) \
                 if device.type == "cuda" else {}
-            r["pass_ms"] = {n: sum(us for k, us in by_name.items()
-                                   if re.search(rf"\b{n}\b", k)) / 1e3
-                            for n in PATH_KERNELS["flash_attention_bwd"]
-                            .entries if by_name}
             tflops = flash_bwd_flops(shape, causal) / r["ms"] * 1e-9
             log(f"flash_grad {shape} {dtype} causal={causal} on "
                 f"{card or device}: max abs err dq / dk / dv "

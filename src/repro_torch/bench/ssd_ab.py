@@ -33,10 +33,12 @@ this, this, base, so both come from one card.  The cases:
   * ``multi_merge_ranks``: the table case (3 rows, 345,000 keys) and one
     main-path launch (3 x 6,250), equal to ``multi_merge_ranks_plain``;
   * ``flash_attention_bwd``: ``chip_smoke.FLASH_GRAD_CASES`` (OLMo-1B's
-    train shape, Qwen2-7B's GQA shape, Whisper's cross-attention) in bf16
+    train shape, Qwen2-7B's GQA shape, Whisper's cross-attention, its
+    encoder and decoder self-attention, the reduced Jamba's GQA) in bf16
     and fp32, o and lse from the plain forward, each build called through
     its own checkout's wrapper (which allocates that build's scratch) and
     held to ``flash_attention_bwd_plain`` by ``bwd_err`` within ``ATOL``;
+    each case also reports the device ms of each launch in one call;
   * ``ssd_chunk_bwd``: the first two shapes of
     ``chip_smoke.ssd_grad_cases`` (Mamba2-1.3B's train shape, 8 x 2048:
     (8, 8, 256, 64, 64, 128), and the reduced Jamba's, (4, 8, 256, 128,
@@ -112,7 +114,10 @@ FLASH_CASES = {
 #: ((b, h, hkv, sq, sk, d), causal): chip_smoke.FLASH_GRAD_CASES
 BWD_CASES = (((8, 16, 16, 2048, 2048, 128), True),
              ((4, 28, 4, 2048, 2048, 128), True),
-             ((4, 12, 12, 448, 1500, 64), False))
+             ((4, 12, 12, 448, 1500, 64), False),
+             ((8, 12, 12, 1500, 1500, 64), False),
+             ((8, 12, 12, 448, 448, 64), True),
+             ((4, 32, 8, 2048, 2048, 128), True))
 #: (B, nc, l, H, P, N): chip_smoke.ssd_grad_cases()'s first two shapes
 SSD_BWD_CASES = ((8, 8, 256, 64, 64, 128), (4, 8, 256, 128, 64, 128))
 #: (M, K, N, bm, bk, tile density): chip_smoke.BSMM_CARD
@@ -489,7 +494,7 @@ def measure(kernel: str, lib_path: Path, reps: int) -> dict:
                       if good else None}
         if wrapper:
             out[label]["host_us"] = host_us(wrapper[0])
-        if kernel == "ssd_chunk_bwd" and good:
+        if kernel in ("ssd_chunk_bwd", "flash_attention_bwd") and good:
             out[label]["launch_ms"] = launch_ms(run)
         del got
         torch.cuda.empty_cache()

@@ -25,10 +25,12 @@
 // dQ) against the forward's two: at OLMo-1B's train shape (8, 16, 16,
 // 2048, 2048, 128), causal, bf16, 3.44e11 operations over the causal half,
 // 0.35 ms at the bf16 tensor-core peak (989 TFLOP/s), against 0.8 GB read
-// and written once (0.25 ms).  This kernel does seven products (S and dP
-// twice, below): 0.49 ms at the peak.
+// and written once (0.25 ms); in fp32 2.08 ms as 3xTF32 at the TF32 peak.
+// This kernel does seven products (S and dP twice, below): 0.49 ms at the
+// peak in bf16, 2.92 ms in fp32 (six bf16 passes a product).
 //
-// Three launches, FlashAttention-2's method, no atomics:
+// Three launches (four in fp32: pass 1b below), FlashAttention-2's
+// method, no atomics:
 //  1. dsum: D = rowsum(do o) in fp32 (16-byte loads, d / 8 lanes a row in
 //     bf16) into a scratch of rows padded to 128 a (b, h): [2][B H]
 //     [sq_pad], lse in log2 units (+inf past sq, so P is 0 there) and D
@@ -100,31 +102,80 @@
 //  * What holds it back: the seven products (S and dP twice), each pass
 //    near half the bf16 peak (OLMo-1B's shape: PERF.md, row 4g).
 //
-// fp32 (namespace tc32): mma.sync m16n8k8 on TF32 as 3xTF32
-// (tf32.cuh; each operand split into hi + lo as its fragment loads) at
-// every head dim.  TF32 wgmma reads only K-major operands from shared
-// memory, so dV += P^T dO, dK += dS^T Q and dQ += dS K each want a
-// transposed hi and lo copy of their B operand beside the K-major ones
-// of S^T = K Q^T and dP^T = V dO^T.  dkdv at d 128, 64 keys: K and V hi
-// and lo 4 x 32 KB = 128 KB, and per 32-query tile Q, dO, Q^T and dO^T
-// hi and lo 8 x 16 KB = 128 KB: 256 KB, over 227 KB with no ring.  At d
-// 64 and 64-query tiles the same is 64 + 128 KB, with the raw tiles 224
-// KB and no second stage.  So no head dim takes wgmma in fp32.
-//  * The m16n8 k8 A fragment wants columns (t, t + 4) where the
-//    accumulator holds (2t, 2t + 1): the route permutes the contraction
-//    index, reading rows 2t, 2t + 1 of the B operand, never the values.
-//  * Each long sum (dK and dV over query tiles, dQ over key tiles) takes a
-//    tile's product in a fresh accumulator, added to the running sum in
-//    fp32: the tensor cores truncate as they accumulate, and chained over
-//    many tiles that bias grows (PERF.md, the fp32 forward's fix).
-//  * Tiles: rows padded by 16 bytes (no bank conflicts in the fragment
-//    loads); dkdv takes query tiles of 32, dq key tiles of 32; at d 128
-//    two CTAs share a key tile, each accumulating half of dK's and dV's
-//    columns (S^T and dP^T computed by both): the whole width with the
-//    split fragments spills (half the width already holds 255 registers
-//    a thread).  Shared memory at d 128: dkdv and dq 135 KB,
-//    one CTA an SM, so registers are left free (up to 255); at d 64 (70
-//    KB, three CTAs an SM) they are capped at 168 to keep the three.
+// fp32 (namespace bf16x3): every product on bf16 wgmma fed by TMA, each
+// fp32 operand as three bf16 parts, x = p0 + p1 + p2 to 2^-27 of x (p0 =
+// bf16(x), p1 = bf16(x - p0), p2 = bf16(x - p0 - p1); each remainder exact
+// in fp32), and a product as the six passes whose order stays above 2^-24
+// (a2 b0, a1 b1, a1 b0, a0 b2, a0 b1, a0 b0, small terms first; a1 b2, a2
+// b1 and a2 b2 dropped): about 2^-24 of a term where 3xTF32 leaves 2^-21,
+// at the same tensor-core time (six k16 passes at the bf16 peak against
+// three k8 passes at the TF32 peak).  Why bf16 and not TF32: TF32 wgmma
+// reads only K-major operands from shared memory, so dV += P^T dO, dK +=
+// dS^T Q and dQ += dS K would want transposed TF32 hi and lo copies of
+// dO, Q and K beside the K-major ones of S and dP (at d 128 over 227 KB);
+// 16-bit wgmma reads the same parts MN-major through the transpose bit, so
+// one copy of each tensor (6 bytes an element) serves both products.
+//  * Pass 1b (split3_kernel) writes q, do, k and v as their parts into the
+//    scratch after pass 1's rows ([3 B, heads, rows, d] bf16 a tensor),
+//    once, near the memory rate (PERF.md, row 4g): the passes below then
+//    load parts by TMA into hopper.cuh's layout as the bf16 route loads
+//    its tiles, and split nothing.
+//  * dkdv, key-stationary: a work item is 64 keys of one (b, KV head);
+//    its K and V parts load once and stay; Q and dO parts of query tiles
+//    (32 queries at d 128, 64 below) stream through a ring with a full and
+//    an empty mbarrier a stage.  The two consumers split the products, not
+//    the keys: consumer 0 takes S^T = K Q^T (wgmma m64n{tile}k16, both
+//    K-major), forms P^T and hands it to consumer 1 through shared memory
+//    (fp32, in the accumulator's order, a named barrier a tile, two
+//    buffers), then dV += P^T dO (P^T's parts the register A operand, dO's
+//    parts MN-major); consumer 1 takes dP^T = V dO^T, then dS^T from P^T
+//    and dK += dS^T Q.  S^T and dP^T are each computed once: four products
+//    a tile, as in the bf16 route.
+//  * dq, query-stationary: a work item is 64 queries of one (b, h); its Q
+//    and dO parts stay; the consumers take the key tiles (32 keys at d
+//    128, 64 below) in turns, consumer c the tiles c, c + 2, ..., each
+//    through a ring of its own (so each mbarrier is waited on by the one
+//    consumer that releases it, phase by phase), and each computes S = Q
+//    K^T, then dP = dO V^T with P formed while dP runs, dS, and dQ += dS K
+//    (dS's parts from registers, K's parts MN-major) over its own tiles;
+//    at the item's end consumer 1 hands its sum over shared memory and
+//    consumer 0 adds it to its own (named barriers; the split depends on
+//    the tile index only, not on the grid).  S and dP are computed again
+//    here, as in the bf16 route: seven products of the bound's five.
+//  * Stacked tiles (d 128): a streamed tile's three parts lie in each box
+//    one after the other, so that S^T, dP^T and S take each A part against
+//    B's parts side by side in one wgmma: a0 [b0 b1 b2] (m64n96), a1 [b0
+//    b1] (n64), a2 b0 (n32), summed in fp32 after: 12 KB of shared memory
+//    read a k16 step where six m64n32 passes read 18, which the SM's
+//    shared-memory bandwidth (about 128 bytes a clock) feeds at two thirds
+//    of the tensor cores' rate.  dq's dP keeps six chained m64n32 passes:
+//    its 96 stacked accumulators beside dQ's sum and P spill.  Below d 128
+//    the tiles are 64 rows (m64n64: both feeds match) and unstacked.
+//  * Each long sum (dK and dV over the group's heads and query tiles, dQ
+//    over key tiles) takes a tile's product in a fresh accumulator (the
+//    first pass overwrites it), added to the running sum in fp32: the
+//    tensor cores truncate as they accumulate, and chained over many tiles
+//    that bias grows (PERF.md, the fp32 forward's fix).
+//  * Registers (setmaxnreg: producer 40, consumers 232; 168 at launch; no
+//    spill): at d 128 a dkdv consumer holds its running sum (64) and S^T's
+//    or dP^T's stacked accumulators (96), then the tile's fresh sum (64)
+//    and the A operand's three parts (24); a dq consumer dQ's running sum
+//    (64) and S's stacked accumulators (96), then P and dP (2 x 16), then
+//    dQ's fresh sum (64) and dS's parts (24).  Splitting the keys as the
+//    bf16 route does would hold dK, dV and a fresh sum (192) beside S^T
+//    and dP^T: over the budget.
+//  * Shared memory (the parts, 6 bytes an element): dkdv at d 128 K and V
+//    2 x 48 KB + 2 stages x (Q and dO 2 x 24 KB + lse and D 256 B) + P^T
+//    2 x 8 KB = 209 KB; at d 64 2 x 24 KB + 3 x 48 KB + 2 x 16 KB = 226
+//    KB; at d 32 2 x 12 KB + 4 x 24.5 KB + 2 x 16 KB = 154 KB.  dq at d 128
+//    Q and dO 2 x 48 KB + 2 stages (one a consumer) x (K and V 2 x 24 KB)
+//    + consumer 1's dQ 32 KB = 224 KB; at d 64 48 + 2 x 48 + 16 = 160 KB;
+//    at d 32 24 + 4 x 24 + 8 = 128 KB.  One CTA an SM (of 227 KB).
+//    Larger tiles do not fit: a 64-query tile at d 128 is 96 KB a stage.
+//  * What holds it back (OLMo-1B's shape: PERF.md, row 4g): the seven
+//    products; dq's dP at two thirds of the rate (above); a dq consumer
+//    has one stage, so its next tile loads while the other consumer
+//    computes; the exponentials and the parts' packing between products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -133,7 +184,6 @@
 #include <type_traits>
 
 #include "hopper.cuh"
-#include "tf32.cuh"
 
 namespace {
 
@@ -152,6 +202,8 @@ struct Params {
   float* lse2;                      // [B, H, sq_pad], log2 units (pass 1)
   float* dsum;                      // [B, H, sq_pad], D (pass 1)
   int64_t st[kTensors][3];          // elements
+  // fp32: q, do, k and v as three bf16 parts each (pass 1b), after dsum
+  __nv_bfloat16* parts;
 };
 
 // the dot product of 16 bytes of a and b (8 bf16 or 4 fp32), in fp32
@@ -212,6 +264,13 @@ int launch_dsum(const Params& p, cudaStream_t stream) {
     dsum_kernel<T, D><<<(unsigned)((rows + kRows - 1) / kRows), 256, 0,
                         stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// a timed call's events (repro_flash_attention_bwd_timed): event k is
+// recorded on the stream before launch k and the last after the last
+// launch; none for an untimed call
+void mark(cudaEvent_t* ev, int k, cudaStream_t stream) {
+  if (ev != nullptr) cudaEventRecord(ev[k], stream);
 }
 
 // --------------------------------------------------------------------- //
@@ -705,7 +764,8 @@ int persistent(K kernel, int items, int smem, const CUtensorMap& tq,
 }
 
 template <int D>
-int launch(const Params& p, const int64_t* st, cudaStream_t stream) {
+int launch(const Params& p, const int64_t* st, cudaStream_t stream,
+           cudaEvent_t* ev) {
   using G = Geo<D>;
   const CUtensorMapSwizzle swizzle = G::kSpan == 128
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -740,394 +800,754 @@ int launch(const Params& p, const int64_t* st, cudaStream_t stream) {
   int sms = 0;
   err = sm_count(&sms);
   if (err != 0) return err;
+  mark(ev, 0, stream);
   err = launch_dsum<__nv_bfloat16, D>(p, stream);
+  mark(ev, 1, stream);
   if (err == 0)
     err = persistent(dkdv_kernel<D>, p.B * p.Hkv * ((p.sk + kBk - 1) / kBk),
                      KvSmem<D>::kSmem, tq, tk, tv, tdo, p, sms, stream);
+  mark(ev, 2, stream);
   if (err == 0)
     err = persistent(dq_kernel<D>, p.B * p.H * ((p.sq + kBqQ - 1) / kBqQ),
                      QSmem<D>::kSmem, tq, tk, tv, tdo, p, sms, stream);
+  mark(ev, 3, stream);
   return err;
 }
 
 }  // namespace hopper
 
 // --------------------------------------------------------------------- //
-// fp32: 3xTF32 on mma.sync m16n8k8
+// fp32: three bf16 parts an operand, bf16 wgmma fed by TMA
 // --------------------------------------------------------------------- //
-namespace tc32 {
+namespace bf16x3 {
 
-constexpr int kWarps = 4, kThreads = 32 * kWarps;
-// CTAs an SM the registers must allow: 3 at d 64, which its 70 KB of
-// shared memory allows too (registers capped at 168); 1 elsewhere (d 128:
-// 135 KB; d 32 spills 16 bytes at ptxas's own cap of 128)
-template <int D>
-constexpr int kMinBlocks = D == 64 ? 3 : 1;
+using namespace sm90;
+using hopper::Geo;
+using hopper::item_of;
 
+constexpr int kThreads = 384;       // warpgroup 0 produces, 1 and 2 consume
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kItem = 64;           // dkdv: keys an item; dq: queries an item
+constexpr int kTileF = 64;          // rows of a streamed tile at d 32 and 64
+constexpr int kTileF128 = 32;       // ... at d 128
+// named barriers (0 is __syncthreads; 1 and 2 are hopper.cuh's turns,
+// which this route does not take): dkdv's exchange of P^T, dq's hand-over
+// of consumer 1's dQ
+constexpr int kExchange = 3, kRedFull = 3, kRedEmpty = 4;
+// the passes of a product of three-part operands, by A part and small
+// terms first: (A part, B part) for a2 b0, a1 b1, a1 b0, a0 b2, a0 b1, a0 b0
+__host__ __device__ constexpr int pass_a(int ps) {
+  return ps == 0 ? 2 : ps <= 2 ? 1 : 0;
+}
+__host__ __device__ constexpr int pass_b(int ps) {
+  return ps == 3 ? 2 : ps == 1 || ps == 4 ? 1 : 0;
+}
+static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 65536,
+              "setmaxnreg budget");
+
+// a streamed tile's rows (queries in dkdv, keys in dq; also a TMA box's
+// rows) and the bytes of one bf16 part of R rows of d columns, in
+// hopper.cuh's layout
 template <int D>
 struct Cfg {
-  static constexpr int kLd = D + 4;                    // a padded row
-  static constexpr int kBk = 64;                       // dkdv: keys a CTA
-  static constexpr int kBqKV = 32;                     // dkdv: query tile
-  // dkdv: CTAs a key tile, each accumulating dK and dV over its share of
-  // d: two at d 128, where the whole width (128 registers) and 3xTF32's
-  // split fragments spill
-  static constexpr int kSplitD = D == 128 ? 2 : 1;
-  static constexpr int kBq = 64;                       // dq: queries a CTA
-  static constexpr int kBkQ = 32;                      // dq: key tile
-  static constexpr int kTile = kLd * 4;                // bytes a row
-  // dkdv: K | V | Q[2] | dO[2] | lse2[2] | D[2]
-  static constexpr int kSmemKV = 2 * kBk * kTile + 4 * kBqKV * kTile +
-                                 4 * kBqKV * 4;
-  // dq: Q | dO | K[2] | V[2] | lse2 | D
-  static constexpr int kSmemQ = 2 * kBq * kTile + 4 * kBkQ * kTile +
-                                2 * kBq * 4;
+  static constexpr int kTile = D == 128 ? kTileF128 : kTileF;
+  // a streamed tile's parts stacked in each box (d 128; below, each part a
+  // plane of its own): see mma3_nt
+  static constexpr bool kStacked = D == 128;
+  __host__ __device__ static constexpr int plane(int rows) {
+    return rows * D * 2;
+  }
+  static constexpr int kItemParts = 3 * plane(kItem);
+  static constexpr int kTileParts = 3 * plane(kTile);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// shared memory of pass 2, from a 1024-byte-aligned base: K's parts | V's
+// parts | Q's parts[kStages] | dO's parts[kStages] | (lse2, D)[kStages] |
+// P^T exchange[2] | mbarriers (K/V full, K/V empty; full, empty a stage)
+template <int D>
+struct KvSmem {
+  using C = Cfg<D>;
+  static constexpr int kStages = D == 128 ? 2 : (D == 64 ? 3 : 4);
+  static constexpr int kK = 0, kV = C::kItemParts, kQs = 2 * C::kItemParts;
+  static constexpr int kDos = kQs + kStages * C::kTileParts;
+  static constexpr int kRows = kDos + kStages * C::kTileParts;
+  static constexpr int kEx = kRows + kStages * 2 * C::kTile * 4;
+  static constexpr int kExBuf = kItem * C::kTile * 4;   // P^T, fp32
+  static constexpr int kBar = kEx + 2 * kExBuf;
+  static constexpr int kSmem = kBar + 8 * (2 + 2 * kStages) + 1024;
+};
+
+// shared memory of pass 3: Q's parts | dO's parts | (K's parts, V's
+// parts)[2 kHalf] (consumer c's ring: stages c kHalf ..) | consumer 1's dQ
+// | mbarriers (Q full, Q empty; full, empty a stage)
+template <int D>
+struct QSmem {
+  using C = Cfg<D>;
+  static constexpr int kHalf = D == 32 ? 2 : 1;         // stages a consumer
+  static constexpr int kStages = 2 * kHalf;
+  static constexpr int kQ = 0, kDo = C::kItemParts, kK = 2 * C::kItemParts;
+  static constexpr int kV = kK + kStages * C::kTileParts;
+  static constexpr int kRed = kV + kStages * C::kTileParts;
+  static constexpr int kBar = kRed + kItem * D * 4;
+  static constexpr int kSmem = kBar + 8 * (2 + 2 * kStages) + 1024;
+};
+static_assert(KvSmem<128>::kSmem <= 232448 && QSmem<128>::kSmem <= 232448 &&
+              KvSmem<64>::kSmem <= 232448 && QSmem<64>::kSmem <= 232448 &&
+              KvSmem<32>::kSmem <= 232448 && QSmem<32>::kSmem <= 232448,
+              "shared memory of one CTA");
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
 }
-// 16 bytes global -> shared, asynchronously; bytes 0 zero-fills
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+// (x, y) as three packed bf16 pairs, x = p0 + p1 + p2 to 2^-27 of x (each
+// remainder exact in fp32); x in the low half, as wgmma's A fragment
+// wants the lower column
+__device__ __forceinline__ void split3(float x, float y, uint32_t& p0,
+                                       uint32_t& p1, uint32_t& p2) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(rx - mf.x, ry - mf.y);
+  p0 = *reinterpret_cast<const uint32_t*>(&h);
+  p1 = *reinterpret_cast<const uint32_t*>(&m);
+  p2 = *reinterpret_cast<const uint32_t*>(&l);
 }
-// all but the newest N committed groups have landed
+
+// an fp32 accumulator of N columns as the three parts' bf16 wgmma A
+// fragments (hopper::pack's layout, a part each)
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// kRows rows of d elements from row row0 of a [rows, d] view (row stride
-// ld elements) into a padded tile; rows at or past n_rows zeros
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t ld, int row0, int n_rows) {
-  constexpr int kChunks = D / 4, kLd = Cfg<D>::kLd;
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 4;
-    const bool in = row0 + r < n_rows;
-    cp_async16(smem_addr(dst + r * kLd + c),
-               in ? src + (int64_t)(row0 + r) * ld + c : src, in ? 16 : 0);
+__device__ __forceinline__ void pack3(const float (&x)[N / 2],
+                                      uint32_t (&a)[3][N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int kk = j / 2, e = 2 * (j % 2);
+    split3(x[4 * j], x[4 * j + 1], a[0][kk][e], a[1][kk][e], a[2][kk][e]);
+    split3(x[4 * j + 2], x[4 * j + 3], a[0][kk][e + 1], a[1][kk][e + 1],
+           a[2][kk][e + 1]);
   }
 }
-
-// a tile's lse2 and D from pass 1's padded rows (+inf and 0 past sq)
-__device__ __forceinline__ void load_rows(float* ls, float* ds,
-                                          const float* lse2,
-                                          const float* dsum, int row0,
-                                          int n_rows) {
-  for (int r = threadIdx.x; r < n_rows; r += kThreads) {
-    ls[r] = lse2[row0 + r];
-    ds[r] = dsum[row0 + r];
-  }
+template <int N>
+__device__ __forceinline__ void reg_fence3(uint32_t (&a)[3][N][4]) {
+  reg_fence(a[0]);
+  reg_fence(a[1]);
+  reg_fence(a[2]);
 }
 
-// C[16 x 8 NT] += X[16 x kDepth] Y[8 NT x kDepth]^T, X and Y padded tiles
-// in shared memory (rows of kLd floats) with the contraction dimension
-// contiguous in both; X and Y point at their first rows.  Accumulator
-// fragments (g = lane / 4, t = lane % 4): c[nt] = C[g][8 nt + 2t, + 1],
-// C[g + 8][8 nt + 2t, + 1].
-template <int kLd, int kDepth, int NT>
-__device__ __forceinline__ void mma_nt(float (&c)[NT][4], const float* X,
-                                       const float* Y, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&c)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 32) wgmma_ss_n32(c, da, db, accumulate);
+  else if constexpr (N == 64) wgmma_ss_n64(c, da, db, accumulate);
+  else if constexpr (N == 96) wgmma_ss_n96(c, da, db, accumulate);
+  else wgmma_ss_n128(c, da, db, accumulate);
+}
+
+// byte offset of part ``part``, box ``box`` of a streamed tile of R rows:
+// planes one after the other, or (kStacked) in each box the three parts'
+// R rows one after the other
+template <int D, int R>
+__host__ __device__ constexpr int tile_off(int part, int box) {
+  return Cfg<D>::kStacked
+             ? (box * 3 * R + part * R) * Geo<D>::kSpan
+             : part * Cfg<D>::plane(R) + box * R * Geo<D>::kSpan;
+}
+
+// the accumulators of C[64 x N] = A[64 x d] B[N x d]^T on three-part
+// operands (mma3_nt): one for the six passes chained, or (kStacked) one a
+// part of A, against B's parts side by side: a0 [b0 b1 b2], a1 [b0 b1], a2
+// b0 (wgmma m64n96, n64, n32 at a 32-row tile: 12 KB of shared memory read
+// a k16 step where six m64n32 passes read 18, which the SM's shared-memory
+// bandwidth feeds at two thirds of the tensor cores' rate)
+template <int D, int N, bool kStacked = Cfg<D>::kStacked>
+struct NtAcc {
+  float x[N / 2];
+};
+template <int D, int N>
+struct NtAcc<D, N, true> {
+  float x0[3 * N / 2], x1[N], x2[N / 2];
+};
+
+// issues C = A B^T into ``acc`` (the caller fences, commits and waits): A
+// the parts (planes of RA rows, the first of its 64 rows at ``a``), B the
+// parts of a streamed tile of N rows at ``b``, both K-major; the six
+// passes chained into one accumulator, or (kStacked) stacked as above.  A
+// stacked tile's parts take chained passes too: dq's dP, issued while its
+// consumer holds dQ's running sum and P, would spill stacked
+template <int D, int RA, int N, bool kStacked = Cfg<D>::kStacked>
+__device__ __forceinline__ void mma3_nt(NtAcc<D, N, kStacked>& acc,
+                                        uint32_t a, uint32_t b) {
+  using G = Geo<D>;
 #pragma unroll
-  for (int kk = 0; kk < kDepth / 8; ++kk) {
-    const float* x0 = X + g * kLd + 8 * kk + t;
-    uint32_t ah[4], al[4];
-    tf32::split(x0[0], ah[0], al[0]);
-    tf32::split(x0[8 * kLd], ah[1], al[1]);
-    tf32::split(x0[4], ah[2], al[2]);
-    tf32::split(x0[8 * kLd + 4], ah[3], al[3]);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t box = kk / G::kKSteps, col = (kk % G::kKSteps) * 32;
+    auto da = [&](int part) {
+      return make_desc(a + part * Cfg<D>::plane(RA) + box * RA * G::kSpan +
+                           col, 16, 8 * G::kSpan, G::kLayout);
+    };
+    if constexpr (kStacked) {
+      const uint64_t db = make_desc(b + tile_off<D, N>(0, box) + col, 16,
+                                    8 * G::kSpan, G::kLayout);
+      wgmma_ss<N>(acc.x2, da(2), db, kk > 0);
+      wgmma_ss<2 * N>(acc.x1, da(1), db, kk > 0);
+      wgmma_ss<3 * N>(acc.x0, da(0), db, kk > 0);
+    } else {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* y0 = Y + (8 * nt + g) * kLd + 8 * kk + t;
-      uint32_t bh0, bl0, bh1, bl1;
-      tf32::split(y0[0], bh0, bl0);
-      tf32::split(y0[4], bh1, bl1);
-      tf32::mma3(c[nt], ah, al, bh0, bh1, bl0, bl1);
+      for (int ps = 0; ps < 6; ++ps)
+        wgmma_ss<N>(acc.x, da(pass_a(ps)),
+                    make_desc(b + tile_off<D, N>(pass_b(ps), box) + col, 16,
+                              8 * G::kSpan, G::kLayout),
+                    kk > 0 || ps > 0);
     }
   }
 }
 
-// O[16 x 8 ND] += P[16 x 8 NK] Y[8 NK x 8 ND]: P in accumulator fragments
-// (mma_nt's layout), Y a padded tile in shared memory ([k][n], rows of kLd
-// floats).  Each 8 columns of O take the sum over P's columns in a fresh
-// accumulator, added to O in fp32.  The accumulator of n-tile kk is the A
-// fragment of k8 step kk with column t holding k = 2t and t + 4 holding
-// 2t + 1, so B reads Y's rows 2t and 2t + 1 where the fragment names t and
-// t + 4.
-template <int kLd, int NK, int ND>
-__device__ __forceinline__ void mma_pn(float (&o)[ND][4],
-                                       const float (&p)[NK][4],
-                                       const float* Y, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+// C from mma3_nt's accumulators once they are done: stacked, the six
+// passes' sums added in fp32 in the passes' order
+template <int D, int N, bool kStacked>
+__device__ __forceinline__ void nt_sum(NtAcc<D, N, kStacked>& acc,
+                                       float (&c)[N / 2]) {
+  if constexpr (kStacked) {
+    reg_fence(acc.x0);
+    reg_fence(acc.x1);
+    reg_fence(acc.x2);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < N / 2; ++i)
+      c[i] = ((((acc.x2[i] + acc.x1[i + N / 2]) + acc.x1[i]) +
+               acc.x0[i + N]) + acc.x0[i + N / 2]) + acc.x0[i];
+  } else {
+    reg_fence(acc.x);
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t ah[4], al[4];
-      tf32::split(p[kk][0], ah[0], al[0]);
-      tf32::split(p[kk][2], ah[1], al[1]);
-      tf32::split(p[kk][1], ah[2], al[2]);
-      tf32::split(p[kk][3], ah[3], al[3]);
-      const float* y0 = Y + (8 * kk + 2 * t) * kLd + 8 * nd + g;
-      uint32_t bh0, bl0, bh1, bl1;
-      tf32::split(y0[0], bh0, bl0);
-      tf32::split(y0[kLd], bh1, bl1);
-      tf32::mma3(acc, ah, al, bh0, bh1, bl0, bl1);
+    for (int i = 0; i < N / 2; ++i) c[i] = acc.x[i];
+  }
+}
+
+// C[64 x d] = A[64 x K] B[K x d] on three-part operands: A in registers
+// (pack3's fragments), B the parts of a streamed tile of K rows at ``b``,
+// read MN-major (the boxes across d tile_off's box stride apart); six
+// passes a k16 step, into C afresh
+template <int D, int K>
+__device__ __forceinline__ void mma3_pn(float (&c)[D / 2],
+                                        const uint32_t (&a)[3][K / 16][4],
+                                        uint32_t b) {
+  using G = Geo<D>;
+  constexpr int kBoxStride = tile_off<D, K>(0, 1) - tile_off<D, K>(0, 0);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int ps = 0; ps < 6; ++ps)
+      wgmma_rs<D>(c, a[pass_a(ps)][kk],
+                  make_desc(b + tile_off<D, K>(pass_b(ps), 0) +
+                                kk * 16 * G::kSpan,
+                            kBoxStride, 8 * G::kSpan, G::kLayout),
+                  kk > 0 || ps > 0);
+}
+
+// the three parts of R rows (a multiple of the tile) of an fp32 view from
+// row0, from their [3 B, heads, rows, d] scratch, to dst: an item's as
+// planes of R rows, a streamed tile's (kStream) at tile_off; rows past the
+// view land as zeros
+template <int D, int R, bool kStream>
+__device__ __forceinline__ void tma_parts(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int row0, int h, int b,
+                                          int batch) {
+  using G = Geo<D>;
+  constexpr int kBox = Cfg<D>::kTile;
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int c = 0; c < G::kBoxes; ++c)
+#pragma unroll
+      for (int r = 0; r < R / kBox; ++r)
+        tma_load(dst + (kStream ? tile_off<D, R>(part, c)
+                              : part * Cfg<D>::plane(R) + c * R * G::kSpan) +
+                     r * kBox * G::kSpan,
+                 map, bar, c * G::kBoxCols, row0 + r * kBox, h,
+                 part * batch + b);
+}
+
+// rows r0 and r0 + 8 x d of an accumulator (scaled) into a [rows, d] fp32
+// view at ``dst`` (row stride ld); rows at or past n_rows are not written
+template <int D>
+__device__ __forceinline__ void store_acc(float* dst, int64_t ld, int r0,
+                                          int c2, int n_rows,
+                                          const float (&x)[D / 2],
+                                          float scale) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (r0 < n_rows)
+      *reinterpret_cast<float2*>(dst + (int64_t)r0 * ld + 8 * j + c2) =
+          make_float2(x[4 * j] * scale, x[4 * j + 1] * scale);
+    if (r0 + 8 < n_rows)
+      *reinterpret_cast<float2*>(dst + (int64_t)(r0 + 8) * ld + 8 * j + c2) =
+          make_float2(x[4 * j + 2] * scale, x[4 * j + 3] * scale);
+  }
+}
+
+// pass 2's item: 64 keys of one (b, KV head) and the query tiles (of every
+// head of the group) that see them; (b, KV head) fastest, the key blocks
+// with the most query tiles first (numbered as pass 3's, with the key
+// blocks of one head fastest, the rounds' unequal causal items cost more
+// than L2 gives back: slower at the GQA train shapes on an H100)
+struct KvWork {
+  int bi, hk, j0, qt0, per_head, n;
+};
+template <int D>
+__device__ __forceinline__ KvWork kv_work(int w, const Params& p) {
+  constexpr int kTile = Cfg<D>::kTile;
+  const int bhs = p.B * p.Hkv, bhk = w % bhs;
+  KvWork wk;
+  wk.bi = bhk / p.Hkv;
+  wk.hk = bhk % p.Hkv;
+  wk.j0 = (w / bhs) * kItem;
+  const int nq = (p.sq + kTile - 1) / kTile;
+  wk.qt0 = p.causal ? min(wk.j0 / kTile, nq) : 0;
+  wk.per_head = nq - wk.qt0;
+  wk.n = (p.H / p.Hkv) * wk.per_head;
+  return wk;
+}
+
+// pass 3's item: 64 queries of one (b, h) and the key tiles they see;
+// the query blocks of one (b, h) fastest and, causal, those with the most
+// tiles first: the CTAs at work at once read the key and value parts of a
+// few heads, which stay in L2 (numbered with (b, h) fastest, they read
+// every head's, from memory where the heads do not share a KV head:
+// slower at OLMo-1B's and Whisper's shapes on an H100, as were chunks of
+// 8 heads)
+struct QWork {
+  int bi, h, hk, q0, n;
+};
+template <int D>
+__device__ __forceinline__ QWork q_work(int w, const Params& p) {
+  constexpr int kTile = Cfg<D>::kTile;
+  const int nq = (p.sq + kItem - 1) / kItem, bh = w / nq;
+  QWork wk;
+  wk.bi = bh / p.H;
+  wk.h = bh % p.H;
+  wk.hk = wk.h / (p.H / p.Hkv);
+  wk.q0 = (p.causal ? nq - 1 - w % nq : w % nq) * kItem;
+  const int kv_end = p.causal ? min(p.sk, min(wk.q0 + kItem, p.sq)) : p.sk;
+  wk.n = (kv_end + kTile - 1) / kTile;
+  return wk;
+}
+
+// ---- pass 2: dK and dV, key-stationary ---- //
+// consumer 0 takes S^T, P^T and dV; consumer 1 dP^T, dS^T and dK, P^T
+// handed over through shared memory
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using C = Cfg<D>;
+  using S = KvSmem<D>;
+  constexpr int kTile = C::kTile;
+  extern __shared__ uint8_t smem_kv3[];
+  const uint32_t raw = smem_addr(smem_kv3);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_kv3 + (base - raw);
+  const float* rows = reinterpret_cast<const float*>(sm + S::kRows);
+  float4* ex = reinterpret_cast<float4*>(sm + S::kEx);
+  const uint32_t kv_full = base + S::kBar, kv_empty = kv_full + 8;
+  const uint32_t full = kv_empty + 8, empty = full + 8 * S::kStages;
+  const int group = p.H / p.Hkv;
+  const int n_items = p.B * p.Hkv * ((p.sk + kItem - 1) / kItem);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 256);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] += acc[e];
+    mbar_fence_init();
   }
-}
+  __syncthreads();
 
-// rows [r, r + 8) x 8 ND of O (fragments as mma_nt's), scaled, into rows
-// row0 + g and row0 + g + 8 of a [rows, d] view; rows at or past n_rows
-// are not written
-template <int ND>
-__device__ __forceinline__ void store_rows(float* dst, int64_t ld, int row0,
-                                           int n_rows, const float (&o)[ND][4],
-                                           float scale, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int c = 8 * nd + 2 * t;
-    if (row0 + g < n_rows)
-      *reinterpret_cast<float2*>(dst + (int64_t)(row0 + g) * ld + c) =
-          make_float2(o[nd][0] * scale, o[nd][1] * scale);
-    if (row0 + g + 8 < n_rows)
-      *reinterpret_cast<float2*>(dst + (int64_t)(row0 + g + 8) * ld + c) =
-          make_float2(o[nd][2] * scale, o[nd][3] * scale);
-  }
-}
-
-// ---- pass 2: dK and dV, a CTA a key tile of one (b, KV head) ---- //
-template <int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
-dkdv_kernel(const Params p) {
-  using C = Cfg<D>;
-  constexpr int kBk = C::kBk, kBq = C::kBqKV, kLd = C::kLd;
-  constexpr int NQ = kBq / 8, ND = D / 8 / C::kSplitD;
-  const int c0 = (int)blockIdx.y * (D / C::kSplitD);   // first column
-  extern __shared__ __align__(16) uint8_t smem_kv[];
-  float* ks = reinterpret_cast<float*>(smem_kv);
-  float* vs = ks + kBk * kLd;
-  float* qs = vs + kBk * kLd;                   // two stages
-  float* dos = qs + 2 * kBq * kLd;              // two stages
-  float* ls = dos + 2 * kBq * kLd;
-  float* dd = ls + 2 * kBq;
-
-  const int bhk = (int)(blockIdx.x % (unsigned)(p.B * p.Hkv));
-  const int kt = (int)(blockIdx.x / (unsigned)(p.B * p.Hkv));
-  const int bi = bhk / p.Hkv, hk = bhk % p.Hkv, group = p.H / p.Hkv;
-  const int j0 = kt * kBk;
-  const int nq = (p.sq + kBq - 1) / kBq;
-  // query tiles that see a key of this tile: causal, those with a query
-  // at or past its first key
-  const int qt0 = p.causal ? min(j0 / kBq, nq) : 0;
-  const int per_head = nq - qt0, n = group * per_head;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  const float* qg = static_cast<const float*>(p.q) + bi * p.st[kQ][0];
-  const float* dog = static_cast<const float*>(p.dout) + bi * p.st[kDo][0];
-  const int64_t rows_bh = (int64_t)bi * p.H;
-  load_tile<D, kBk>(ks, static_cast<const float*>(p.k) + bi * p.st[kK][0] +
-                            hk * p.st[kK][1], p.st[kK][2], j0, p.sk);
-  load_tile<D, kBk>(vs, static_cast<const float*>(p.v) + bi * p.st[kV][0] +
-                            hk * p.st[kV][1], p.st[kV][2], j0, p.sk);
-  // tile it: head hk group + it / per_head, query tile qt0 + it % per_head
-  auto issue = [&](int it) {
-    const int h = hk * group + it / per_head;
-    const int i0 = (qt0 + it % per_head) * kBq, s = it & 1;
-    load_tile<D, kBq>(qs + s * kBq * kLd, qg + h * p.st[kQ][1], p.st[kQ][2],
-                      i0, p.sq);
-    load_tile<D, kBq>(dos + s * kBq * kLd, dog + h * p.st[kDo][1],
-                      p.st[kDo][2], i0, p.sq);
-    load_rows(ls + s * kBq, dd + s * kBq, p.lse2 + (rows_bh + h) * p.sq_pad,
-              p.dsum + (rows_bh + h) * p.sq_pad, i0, kBq);
-  };
-  if (n > 0) issue(0);
-  cp_async_commit();
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
-  const int jw = j0 + 16 * warp + g;            // the thread's keys jw, +8
-  for (int it = 0; it < n; ++it) {
-    if (it + 1 < n) issue(it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int s = it & 1, i0 = (qt0 + it % per_head) * kBq;
-    const float* qt = qs + s * kBq * kLd;
-    const float* dot = dos + s * kBq * kLd;
-    const float* lt = ls + s * kBq;
-    const float* dt = dd + s * kBq;
-    float sc[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
-    mma_nt<kLd, D, NQ>(sc, ks + 16 * warp * kLd, qt, lane);  // S^T
-    mma_nt<kLd, D, NQ>(dp, vs + 16 * warp * kLd, dot, lane); // dP^T
-    // P^T and dS^T: element e of n-tile nt is key jw + 8 (e / 2), query
-    // i0 + 8 nt + 2t + e % 2
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int il = 8 * nt + 2 * t + (e & 1), i = i0 + il;
-        const int j = jw + 8 * (e >> 1);
-        const bool ok = i < p.sq && j < p.sk && (!p.causal || j <= i);
-        const float pe = ok ? ex2(sc[nt][e] * p.scale_log2 - lt[il]) : 0.f;
-        sc[nt][e] = pe;
-        dp[nt][e] = pe * (dp[nt][e] - dt[il]);
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;                                // tiles through the ring
+      for (int round = 0; item_of(round) < n_items; ++round) {
+        const KvWork wk = kv_work<D>(item_of(round), p);
+        mbar_wait(kv_empty, (round & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * C::kItemParts);
+        tma_parts<D, kItem, false>(base + S::kK, &tk, kv_full, wk.j0, wk.hk,
+                                   wk.bi, p.B);
+        tma_parts<D, kItem, false>(base + S::kV, &tv, kv_full, wk.j0, wk.hk,
+                                   wk.bi, p.B);
+        for (int t = 0; t < wk.n; ++t, ++it) {
+          const int s = it % S::kStages;
+          const uint32_t bar = full + 8 * s;
+          const int h = wk.hk * group + t / wk.per_head;
+          const int i0 = (wk.qt0 + t % wk.per_head) * kTile;
+          const int64_t row = ((int64_t)wk.bi * p.H + h) * p.sq_pad + i0;
+          mbar_wait(empty + 8 * s, ((it / S::kStages) & 1) ^ 1);
+          mbar_expect_tx(bar, 2 * C::kTileParts + 2 * kTile * 4);
+          tma_parts<D, kTile, true>(base + S::kQs + s * C::kTileParts, &tq,
+                                    bar, i0, h, wk.bi, p.B);
+          tma_parts<D, kTile, true>(base + S::kDos + s * C::kTileParts, &tdo,
+                                    bar, i0, h, wk.bi, p.B);
+          const uint32_t r = base + S::kRows + s * 2 * kTile * 4;
+          bulk_load(r, p.lse2 + row, kTile * 4, bar);
+          bulk_load(r + kTile * 4, p.dsum + row, kTile * 4, bar);
+        }
       }
-    mma_pn<kLd, NQ, ND>(dv, sc, dot + c0, lane);  // dV += P^T dO
-    mma_pn<kLd, NQ, ND>(dk, dp, qt + c0, lane);   // dK += dS^T Q
-    __syncthreads();                            // the stage is free
-  }
-  const int r0 = j0 + 16 * warp;
-  store_rows<ND>(static_cast<float*>(p.dk) + bi * p.st[kDk][0] +
-                     hk * p.st[kDk][1] + c0, p.st[kDk][2], r0, p.sk, dk,
-                 p.scale, lane);
-  store_rows<ND>(static_cast<float*>(p.dv) + bi * p.st[kDv][0] +
-                     hk * p.st[kDv][1] + c0, p.st[kDv][2], r0, p.sk, dv,
-                 1.f, lane);
-}
-
-// ---- pass 3: dQ, a CTA a query tile of one (b, h) ---- //
-template <int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
-dq_kernel(const Params p) {
-  using C = Cfg<D>;
-  constexpr int kBq = C::kBq, kBk = C::kBkQ, kLd = C::kLd;
-  constexpr int NK = kBk / 8, ND = D / 8;
-  extern __shared__ __align__(16) uint8_t smem_q[];
-  float* qs = reinterpret_cast<float*>(smem_q);
-  float* dos = qs + kBq * kLd;
-  float* ks = dos + kBq * kLd;                  // two stages
-  float* vs = ks + 2 * kBk * kLd;               // two stages
-  float* ls = vs + 2 * kBk * kLd;
-  float* dd = ls + kBq;
-
-  const int nq = (p.sq + kBq - 1) / kBq;
-  const int bh = (int)(blockIdx.x % (unsigned)(p.B * p.H));
-  // under the causal mask the query blocks with the most key tiles first
-  const int qb = p.causal ? nq - 1 - (int)(blockIdx.x / (unsigned)(p.B * p.H))
-                          : (int)(blockIdx.x / (unsigned)(p.B * p.H));
-  const int bi = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hkv);
-  const int i0 = qb * kBq;
-  const int kv_end = p.causal ? min(p.sk, min(i0 + kBq, p.sq)) : p.sk;
-  const int n = (kv_end + kBk - 1) / kBk;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  load_tile<D, kBq>(qs, static_cast<const float*>(p.q) + bi * p.st[kQ][0] +
-                            h * p.st[kQ][1], p.st[kQ][2], i0, p.sq);
-  load_tile<D, kBq>(dos, static_cast<const float*>(p.dout) +
-                             bi * p.st[kDo][0] + h * p.st[kDo][1],
-                    p.st[kDo][2], i0, p.sq);
-  load_rows(ls, dd, p.lse2 + ((int64_t)bi * p.H + h) * p.sq_pad,
-            p.dsum + ((int64_t)bi * p.H + h) * p.sq_pad, i0, kBq);
-  const float* kg = static_cast<const float*>(p.k) + bi * p.st[kK][0] +
-                    hk * p.st[kK][1];
-  const float* vg = static_cast<const float*>(p.v) + bi * p.st[kV][0] +
-                    hk * p.st[kV][1];
-  auto issue = [&](int it) {
-    const int s = it & 1;
-    load_tile<D, kBk>(ks + s * kBk * kLd, kg, p.st[kK][2], it * kBk, p.sk);
-    load_tile<D, kBk>(vs + s * kBk * kLd, vg, p.st[kV][2], it * kBk, p.sk);
-  };
-  if (n > 0) issue(0);
-  cp_async_commit();
-
-  float dq[ND][4];
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1;
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct / 32, lane = ct % 32;
+    const int c2 = 2 * (lane % 4);             // columns c2, c2 + 1 of 8
+    // consumer 0: S^T = K Q^T, then dV += P^T dO; consumer 1: dP^T =
+    // V dO^T, then dK += dS^T Q
+    const uint32_t a_st = base + (c == 0 ? S::kK : S::kV);
+    int it = 0, n_ex = 0;
+    for (int round = 0; item_of(round) < n_items; ++round) {
+      const KvWork wk = kv_work<D>(item_of(round), p);
+      const int r0 = wk.j0 + 16 * warp + lane / 4;  // the thread's: r0, +8
+      float acc[D / 2];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      mbar_wait(kv_full, round & 1);
+      for (int t = 0; t < wk.n; ++t, ++it) {
+        const int s = it % S::kStages;
+        const int i0 = (wk.qt0 + t % wk.per_head) * kTile;
+        const uint32_t q_s = base + S::kQs + s * C::kTileParts;
+        const uint32_t do_s = base + S::kDos + s * C::kTileParts;
+        mbar_wait(full + 8 * s, (it / S::kStages) & 1);
+        float x[kTile / 2];            // S^T or dP^T: keys x queries
+        {
+          NtAcc<D, kTile> st;
+          wgmma_fence();
+          mma3_nt<D, kItem, kTile>(st, a_st, c == 0 ? q_s : do_s);
+          wgmma_commit();
+          wgmma_wait<0>();
+          nt_sum(st, x);
+        }
+        if (t == wk.n - 1) mbar_arrive(kv_empty);   // K, V read for good
+        // element 4 j + e is key r0 + 8 (e / 2), query i0 + 8 j + c2 +
+        // e % 2; past sq lse2 is +inf (P = 0) and D is 0
+        const float* ls = rows + s * 2 * kTile;
+        float4* xb = ex + (n_ex & 1) * (kTile / 8) * 128 + ct;
+        ++n_ex;
+        if (c == 0) {
+          const bool diag = p.causal && wk.j0 + kItem - 1 > i0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nd][e] = 0.f;
-  const int iw = 16 * warp + g;                 // the thread's rows, +8
-  for (int it = 0; it < n; ++it) {
-    if (it + 1 < n) issue(it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int s = it & 1, j0 = it * kBk;
-    const float* kt = ks + s * kBk * kLd;
-    const float* vt = vs + s * kBk * kLd;
-    float sc[NK][4], dp[NK][4];
+          for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
+            for (int e = 0; e < 4; ++e) {
+              const int il = 8 * j + c2 + (e & 1);
+              float pe = ex2(fmaf(x[4 * j + e], p.scale_log2, -ls[il]));
+              if (diag && r0 + 8 * (e >> 1) > i0 + il) pe = 0.f;
+              x[4 * j + e] = pe;
+            }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
-    mma_nt<kLd, D, NK>(sc, qs + 16 * warp * kLd, kt, lane);   // S
-    mma_nt<kLd, D, NK>(dp, dos + 16 * warp * kLd, vt, lane);  // dP
-    // element e of n-tile nt is query i0 + iw + 8 (e / 2), key j0 + 8 nt
-    // + 2t + e % 2
+          for (int q4 = 0; q4 < kTile / 8; ++q4)
+            xb[q4 * 128] = make_float4(x[4 * q4], x[4 * q4 + 1],
+                                       x[4 * q4 + 2], x[4 * q4 + 3]);
+          named_sync(kExchange);                 // P^T handed over
+        } else {
+          named_sync(kExchange);
+          const float* dd = ls + kTile;
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
+          for (int q4 = 0; q4 < kTile / 8; ++q4) {
+            const float4 pt = xb[q4 * 128];
+            const float pv[4] = {pt.x, pt.y, pt.z, pt.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int il = iw + 8 * (e >> 1), i = i0 + il;
-        const int j = j0 + 8 * nt + 2 * t + (e & 1);
-        const bool ok = i < p.sq && j < p.sk && (!p.causal || j <= i);
-        const float pe = ok ? ex2(sc[nt][e] * p.scale_log2 - ls[il]) : 0.f;
-        dp[nt][e] = pe * (dp[nt][e] - dd[il]);
+            for (int e = 0; e < 4; ++e)
+              x[4 * q4 + e] = pv[e] * (x[4 * q4 + e] -
+                                       dd[8 * q4 + c2 + (e & 1)]);
+          }
+        }
+        // a tile's dV (or dK) in a fresh accumulator, added in fp32
+        uint32_t a[3][kTile / 16][4];
+        pack3<kTile>(x, a);
+        float fresh[D / 2];
+        wgmma_fence();
+        mma3_pn<D, kTile>(fresh, a, c == 0 ? do_s : q_s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(fresh);
+        reg_fence3(a);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] += fresh[i];
+        mbar_arrive(empty + 8 * s);
       }
-    mma_pn<kLd, NK, ND>(dq, dp, kt, lane);      // dQ += dS K
-    __syncthreads();                            // the stage is free
+      if (wk.n == 0) mbar_arrive(kv_empty);
+      const int tsr = c == 0 ? kDv : kDk;
+      float* dst = static_cast<float*>(c == 0 ? p.dv : p.dk) +
+                   wk.bi * p.st[tsr][0] + wk.hk * p.st[tsr][1];
+      store_acc<D>(dst, p.st[tsr][2], r0, c2, p.sk, acc,
+                   c == 0 ? 1.f : p.scale);
+    }
   }
-  store_rows<ND>(static_cast<float*>(p.dq) + bi * p.st[kDq][0] +
-                     h * p.st[kDq][1], p.st[kDq][2], i0 + 16 * warp, p.sq,
-                 dq, p.scale, lane);
+}
+
+// ---- pass 3: dQ, query-stationary ---- //
+// the consumers take the key tiles in turns (consumer c tiles c, c + 2,
+// ..., through a ring of its own), each summing its share of dQ; at the
+// item's end consumer 0 adds consumer 1's share to its own
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using C = Cfg<D>;
+  using S = QSmem<D>;
+  constexpr int kTile = C::kTile;
+  extern __shared__ uint8_t smem_q3[];
+  const uint32_t raw = smem_addr(smem_q3);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float4* red = reinterpret_cast<float4*>(smem_q3 + (base - raw) + S::kRed);
+  const uint32_t q_full = base + S::kBar, q_empty = q_full + 8;
+  const uint32_t full = q_empty + 8, empty = full + 8 * S::kStages;
+  const int n_items = p.B * p.H * ((p.sq + kItem - 1) / kItem);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it0 = 0, it1 = 0;                      // tiles through each ring
+      for (int round = 0; item_of(round) < n_items; ++round) {
+        const QWork wk = q_work<D>(item_of(round), p);
+        mbar_wait(q_empty, (round & 1) ^ 1);
+        mbar_expect_tx(q_full, 2 * C::kItemParts);
+        tma_parts<D, kItem, false>(base + S::kQ, &tq, q_full, wk.q0, wk.h,
+                                   wk.bi, p.B);
+        tma_parts<D, kItem, false>(base + S::kDo, &tdo, q_full, wk.q0, wk.h,
+                                   wk.bi, p.B);
+        for (int t = 0; t < wk.n; ++t) {
+          const int c = t & 1, n = c == 0 ? it0++ : it1++;
+          const int s = c * S::kHalf + n % S::kHalf;
+          const uint32_t bar = full + 8 * s;
+          mbar_wait(empty + 8 * s, ((n / S::kHalf) & 1) ^ 1);
+          mbar_expect_tx(bar, 2 * C::kTileParts);
+          tma_parts<D, kTile, true>(base + S::kK + s * C::kTileParts, &tk,
+                                    bar, t * kTile, wk.hk, wk.bi, p.B);
+          tma_parts<D, kTile, true>(base + S::kV + s * C::kTileParts, &tv,
+                                    bar, t * kTile, wk.hk, wk.bi, p.B);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1;
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct / 32, lane = ct % 32;
+    const int c2 = 2 * (lane % 4);
+    if (c == 0) named_arrive(kRedEmpty);         // the hand-over is free
+    int n = 0;                                   // tiles this consumer took
+    for (int round = 0; item_of(round) < n_items; ++round) {
+      const QWork wk = q_work<D>(item_of(round), p);
+      const int r0 = wk.q0 + 16 * warp + lane / 4;  // the thread's: r0, +8
+      // keys < lim are seen; lse2 and D of rows past sq are +inf and 0
+      const int lim0 = p.causal ? min(p.sk, r0 + 1) : p.sk;
+      const int lim1 = p.causal ? min(p.sk, r0 + 9) : p.sk;
+      const int64_t rb = ((int64_t)wk.bi * p.H + wk.h) * p.sq_pad + r0;
+      const float l0 = p.lse2[rb], l1 = p.lse2[rb + 8];
+      const float d0 = p.dsum[rb], d1 = p.dsum[rb + 8];
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      mbar_wait(q_full, round & 1);
+      bool released = false;
+      for (int t = c; t < wk.n; t += 2, ++n) {
+        const int s = c * S::kHalf + n % S::kHalf, j0 = t * kTile;
+        const uint32_t k_s = base + S::kK + s * C::kTileParts;
+        const uint32_t v_s = base + S::kV + s * C::kTileParts;
+        mbar_wait(full + 8 * s, (n / S::kHalf) & 1);
+        float sc[kTile / 2], dp[kTile / 2];      // S, dP: queries x keys
+        {
+          NtAcc<D, kTile, C::kStacked> acc_s;
+          wgmma_fence();
+          mma3_nt<D, kItem, kTile>(acc_s, base + S::kQ, k_s);
+          wgmma_commit();
+          wgmma_wait<0>();
+          nt_sum(acc_s, sc);
+        }
+        NtAcc<D, kTile, false> acc_dp;           // chained: see mma3_nt
+        wgmma_fence();
+        mma3_nt<D, kItem, kTile, false>(acc_dp, base + S::kDo, v_s);
+        wgmma_commit();                           // dP runs beside P
+        // element 4 j + e is query r0 + 8 (e / 2), key j0 + 8 j + c2 +
+        // e % 2; keys past sk (zero rows) and above the diagonal masked
+        const bool edge = j0 + kTile > p.sk ||
+                          (p.causal && j0 + kTile - 1 > wk.q0);
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e >= 2;
+            float pe = ex2(fmaf(sc[4 * j + e], p.scale_log2,
+                                -(hi ? l1 : l0)));
+            if (edge && j0 + 8 * j + c2 + (e & 1) >= (hi ? lim1 : lim0))
+              pe = 0.f;
+            sc[4 * j + e] = pe;
+          }
+        wgmma_wait<0>();
+        nt_sum(acc_dp, dp);
+        if (t + 2 >= wk.n) {                      // Q, dO read for good
+          mbar_arrive(q_empty);
+          released = true;
+        }
+#pragma unroll
+        for (int i = 0; i < kTile / 2; ++i)
+          dp[i] = sc[i] * (dp[i] - ((i & 3) >= 2 ? d1 : d0));
+        uint32_t a[3][kTile / 16][4];
+        pack3<kTile>(dp, a);
+        float fresh[D / 2];
+        wgmma_fence();
+        mma3_pn<D, kTile>(fresh, a, k_s);        // a tile's dS K, afresh
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(fresh);
+        reg_fence3(a);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] += fresh[i];
+        mbar_arrive(empty + 8 * s);
+      }
+      if (!released) mbar_arrive(q_empty);
+      // dQ = consumer 0's share + consumer 1's, in that order
+      if (c == 1) {
+        named_sync(kRedEmpty);
+#pragma unroll
+        for (int q4 = 0; q4 < D / 8; ++q4)
+          red[q4 * 128 + ct] = make_float4(acc[4 * q4], acc[4 * q4 + 1],
+                                           acc[4 * q4 + 2], acc[4 * q4 + 3]);
+        named_arrive(kRedFull);
+      } else {
+        named_sync(kRedFull);
+#pragma unroll
+        for (int q4 = 0; q4 < D / 8; ++q4) {
+          const float4 o = red[q4 * 128 + ct];
+          acc[4 * q4] += o.x;
+          acc[4 * q4 + 1] += o.y;
+          acc[4 * q4 + 2] += o.z;
+          acc[4 * q4 + 3] += o.w;
+        }
+        named_arrive(kRedEmpty);
+        float* dqg = static_cast<float*>(p.dq) + wk.bi * p.st[kDq][0] +
+                     wk.h * p.st[kDq][1];
+        store_acc<D>(dqg, p.st[kDq][2], r0, c2, p.sq, acc, p.scale);
+      }
+    }
+  }
+}
+
+// ---- pass 1b: q, do, k and v as three bf16 parts ---- //
+// tensor blockIdx.y (q, do, k, v) into its [3 B, heads, rows, d] array of
+// the scratch (Params::parts: q's, do's, k's, v's), 4 elements a thread
+template <int D>
+__global__ void __launch_bounds__(256) split3_kernel(const Params p) {
+  const int y = blockIdx.y;
+  const bool kv = y >= 2;
+  const int tsr = y == 0 ? kQ : y == 1 ? kDo : y == 2 ? kK : kV;
+  const int heads = kv ? p.Hkv : p.H, len = kv ? p.sk : p.sq;
+  const int64_t n_q = (int64_t)p.B * p.H * p.sq * D;
+  const int64_t n_k = (int64_t)p.B * p.Hkv * p.sk * D;
+  const int64_t n = kv ? n_k : n_q;
+  const int64_t idx = ((int64_t)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (idx >= n) return;
+  const int64_t row = idx / D;
+  const int col = (int)(idx % D), i = (int)(row % len);
+  const int h = (int)(row / len % heads), bi = (int)(row / len / heads);
+  const float4 x = *reinterpret_cast<const float4*>(
+      static_cast<const float*>(
+          tsr == kQ ? p.q : tsr == kDo ? p.dout : tsr == kK ? p.k : p.v) +
+      bi * p.st[tsr][0] + h * p.st[tsr][1] + i * p.st[tsr][2] + col);
+  __nv_bfloat16* dst = p.parts + (y < 2 ? y * 3 * n_q
+                                        : 6 * n_q + (y - 2) * 3 * n_k) + idx;
+  uint32_t a[3], b[3];
+  split3(x.x, x.y, a[0], a[1], a[2]);
+  split3(x.z, x.w, b[0], b[1], b[2]);
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+    *reinterpret_cast<uint2*>(dst + part * n) = make_uint2(a[part], b[part]);
 }
 
 template <int D>
-int launch(const Params& p, cudaStream_t stream) {
-  using C = Cfg<D>;
-  cudaError_t err = (cudaError_t)launch_dsum<float, D>(p, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t kv_blocks = (int64_t)p.B * p.Hkv *
-                            ((p.sk + C::kBk - 1) / C::kBk);
-  if (kv_blocks > 0) {
-    err = cudaFuncSetAttribute(dkdv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmemKV);
-    if (err != cudaSuccess) return (int)err;
-    dkdv_kernel<D><<<dim3((unsigned)kv_blocks, C::kSplitD), kThreads,
-                     C::kSmemKV, stream>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int64_t q_blocks = (int64_t)p.B * p.H *
-                           ((p.sq + C::kBq - 1) / C::kBq);
-  if (q_blocks > 0) {
-    err = cudaFuncSetAttribute(dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmemQ);
-    if (err != cudaSuccess) return (int)err;
-    dq_kernel<D><<<(unsigned)q_blocks, kThreads, C::kSmemQ, stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+int launch(const Params& p, cudaStream_t stream, cudaEvent_t* ev) {
+  using G = Geo<D>;
+  const CUtensorMapSwizzle swizzle = G::kSpan == 128
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const int64_t n_q = (int64_t)p.B * p.H * p.sq * D;
+  const int64_t n_k = (int64_t)p.B * p.Hkv * p.sk * D;
+  const __nv_bfloat16* parts[4] = {p.parts, p.parts + 3 * n_q,
+                                   p.parts + 6 * n_q,
+                                   p.parts + 6 * n_q + 3 * n_k};
+  // a view with no rows is never loaded: its map describes the other side
+  const bool no_q = p.sq == 0, no_k = p.sk == 0;
+  auto map = [&](CUtensorMap* m, int which) {
+    const bool keys = which >= 2, other = keys ? no_k : no_q;
+    const bool as_keys = keys != other;
+    const int rows = as_keys ? p.sk : p.sq, heads = as_keys ? p.Hkv : p.H;
+    const int64_t pst[3] = {(int64_t)heads * rows * D, (int64_t)rows * D, D};
+    return encode(m, other ? parts[keys ? 0 : 2] : parts[which], D, rows,
+                  heads, 3 * p.B, pst, G::kBoxCols, Cfg<D>::kTile, swizzle);
+  };
+  cudaError_t e = cudaFuncSetAttribute(
+      dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      KvSmem<D>::kSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             QSmem<D>::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = map(&tq, 0);
+  if (err == 0) err = map(&tdo, 1);
+  if (err == 0) err = map(&tk, 2);
+  if (err == 0) err = map(&tv, 3);
+  if (err != 0) return err;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != 0) return err;
+  const int64_t n4 = (n_q > n_k ? n_q : n_k) / 4;
+  mark(ev, 0, stream);
+  split3_kernel<D><<<dim3((unsigned)((n4 + 255) / 256), 4), 256, 0,
+                     stream>>>(p);
+  err = (int)cudaGetLastError();
+  mark(ev, 1, stream);
+  if (err == 0) err = launch_dsum<float, D>(p, stream);
+  mark(ev, 2, stream);
+  if (err == 0)
+    err = hopper::persistent(dkdv_kernel<D>,
+                             p.B * p.Hkv * ((p.sk + kItem - 1) / kItem),
+                             KvSmem<D>::kSmem, tq, tk, tv, tdo, p, sms,
+                             stream);
+  mark(ev, 3, stream);
+  if (err == 0)
+    err = hopper::persistent(dq_kernel<D>,
+                             p.B * p.H * ((p.sq + kItem - 1) / kItem),
+                             QSmem<D>::kSmem, tq, tk, tv, tdo, p, sms,
+                             stream);
+  mark(ev, 4, stream);
+  return err;
 }
 
-}  // namespace tc32
+}  // namespace bf16x3
 
 template <typename Fn>
 int by_head_dim(int d, Fn&& fn) {
@@ -1137,19 +1557,13 @@ int by_head_dim(int d, Fn&& fn) {
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do, dq, dk, dv).  lse: the
-// forward's contiguous fp32 [B, H, sq]; dsum: a contiguous fp32 scratch of
-// 2 B H sq_pad values, sq_pad = sq rounded up to a multiple of 128 (pass
-// 1's lse2 and D rows).  strides: 24 int64, the batch, head and sequence
-// strides of q, k, v, o, do, dq, dk and dv, in elements, each a multiple
-// of 16 bytes, as the bases are.
-extern "C" int repro_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* dsum, int B, int H, int Hkv, int sq, int sk, int d, int causal,
-    float scale, int dtype, const int64_t* strides, void* stream) {
+// one call's launches on ``stream``, ev (none, or the timed call's
+// events) passed on to mark
+int run(const void* q, const void* k, const void* v, const void* o,
+        const void* lse, const void* dout, void* dq, void* dk, void* dv,
+        void* dsum, int B, int H, int Hkv, int sq, int sk, int d, int causal,
+        float scale, int dtype, const int64_t* strides, cudaStream_t stream,
+        cudaEvent_t* ev) {
   Params p;
   p.B = B;
   p.H = H;
@@ -1171,17 +1585,71 @@ extern "C" int repro_flash_attention_bwd(
   p.lse = static_cast<const float*>(lse);
   p.lse2 = static_cast<float*>(dsum);
   p.dsum = p.lse2 + (int64_t)B * H * p.sq_pad;
+  p.parts = nullptr;
   for (int tsr = 0; tsr < kTensors; ++tsr)
     for (int a = 0; a < 3; ++a) p.st[tsr][a] = strides[3 * tsr + a];
-  if ((int64_t)B * H * Hkv == 0 || (sq == 0 && sk == 0)) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
     return by_head_dim(d, [&](auto D) {
-      return hopper::launch<decltype(D)::value>(p, strides, s);
+      return hopper::launch<decltype(D)::value>(p, strides, stream, ev);
     });
+  p.parts = reinterpret_cast<__nv_bfloat16*>(p.dsum + (int64_t)B * H *
+                                                          p.sq_pad);
   return by_head_dim(d, [&](auto D) {
-    return tc32::launch<decltype(D)::value>(p, s);
+    return bf16x3::launch<decltype(D)::value>(p, stream, ev);
   });
+}
+
+// nothing has a row: no launch
+bool no_rows(int B, int H, int Hkv, int sq, int sk) {
+  return (int64_t)B * H * Hkv == 0 || (sq == 0 && sk == 0);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do, dq, dk, dv).  lse: the
+// forward's contiguous fp32 [B, H, sq]; dsum: a contiguous fp32 scratch of
+// 2 B H sq_pad values, sq_pad = sq rounded up to a multiple of 128 (pass
+// 1's lse2 and D rows), in fp32 followed by the three bf16 parts of q,
+// do, k and v (3 (2 B H sq + 2 B Hkv sk) d values).  strides: 24 int64,
+// the batch, head and sequence strides of q, k, v, o, do, dq, dk and dv,
+// in elements, each a multiple of 16 bytes, as the bases are.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* dsum, int B, int H, int Hkv, int sq, int sk, int d, int causal,
+    float scale, int dtype, const int64_t* strides, void* stream) {
+  if (no_rows(B, H, Hkv, sq, sk)) return 0;
+  return run(q, k, v, o, lse, dout, dq, dk, dv, dsum, B, H, Hkv, sq, sk, d,
+             causal, scale, dtype, strides, (cudaStream_t)stream, nullptr);
+}
+
+// The same call, timed: ms[k] the device milliseconds of launch k (bf16:
+// dsum, dkdv, dq; fp32: split3, dsum, dkdv, dq; 0 where nothing has a
+// row) from CUDA events recorded around each on the stream; returns once
+// the call is done.  For measurement only.
+extern "C" int repro_flash_attention_bwd_timed(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* dsum, int B, int H, int Hkv, int sq, int sk, int d, int causal,
+    float scale, int dtype, const int64_t* strides, void* stream,
+    float* ms) {
+  const int n = dtype == 1 ? 3 : 4;              // the route's launches
+  for (int i = 0; i < n; ++i) ms[i] = 0.f;
+  if (no_rows(B, H, Hkv, sq, sk)) return 0;
+  cudaEvent_t ev[5];
+  int made = 0, code = 0;
+  for (; made <= n; ++made) {
+    code = (int)cudaEventCreate(&ev[made]);
+    if (code != 0) break;
+  }
+  if (code == 0)
+    code = run(q, k, v, o, lse, dout, dq, dk, dv, dsum, B, H, Hkv, sq, sk,
+               d, causal, scale, dtype, strides, (cudaStream_t)stream, ev);
+  if (code == 0) code = (int)cudaEventSynchronize(ev[n]);
+  for (int i = 0; i < n && code == 0; ++i)
+    code = (int)cudaEventElapsedTime(&ms[i], ev[i], ev[i + 1]);
+  for (int i = 0; i < made; ++i) cudaEventDestroy(ev[i]);
+  return code;
 }
 
 extern "C" const char* repro_error_string(int code) {

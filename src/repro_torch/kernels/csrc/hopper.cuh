@@ -1,5 +1,6 @@
 // hopper.cuh: the sm_90a building blocks shared by the bf16 routes of
-// flash_attention.cu and flash_attention_bwd.cu: TMA loads into shared
+// flash_attention.cu and flash_attention_bwd.cu (and the latter's fp32
+// route, on bf16 parts) and ssd_chunk_bwd.cu: TMA loads into shared
 // memory counted on mbarriers, the full/empty barrier ring's waits and
 // arrivals, wgmma descriptors and products (bf16 in, fp32 accumulate),
 // setmaxnreg for warp-specialised CTAs, and the host's encoding of TMA
@@ -177,6 +178,35 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SM90_ACC8(0), SM90_ACC8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 96] (+)= A[64 x 16] B[16 x 96]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24),
+        SM90_ACC8(32), SM90_ACC8(40)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
@@ -191,11 +221,12 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D[64 x 32] += A[64 x 16] B[16 x 32]: A in registers, B MN-major in
-// shared memory
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A in registers, B MN-major in
+// shared memory; D is overwritten when accumulate is 0
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -203,14 +234,15 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       "%12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : SM90_ACC8(0), SM90_ACC8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B MN-major in
-// shared memory
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A in registers, B MN-major in
+// shared memory; D is overwritten when accumulate is 0
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -219,14 +251,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
-// D[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B MN-major in
-// shared memory
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A in registers, B MN-major
+// in shared memory; D is overwritten when accumulate is 0
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                                const uint32_t (&a)[4],
-                                               uint64_t db) {
+                                               uint64_t db,
+                                               int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -239,19 +272,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24),
         SM90_ACC8(32), SM90_ACC8(40), SM90_ACC8(48), SM90_ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 #undef SM90_ACC8
 
-// D[64 x D] += A[64 x 16] B[16 x D], D the head dim (32, 64 or 128)
+// D[64 x D] (+)= A[64 x 16] B[16 x D], D the head dim (32, 64 or 128); D
+// is overwritten when accumulate is 0
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+                                         uint64_t db, int accumulate = 1) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, db, accumulate);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, db, accumulate);
+  else wgmma_rs_n128(d, a, db, accumulate);
 }
 
 // ---- the host: TMA tensor maps ---- //

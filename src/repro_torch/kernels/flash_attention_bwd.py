@@ -8,9 +8,11 @@ gradient; ``flash_attention.FlashAttention`` calls it.
 
 ``flash_attention_bwd`` launches the kernel (FlashAttention-2's method:
 ``D = rowsum(do o)``, then one pass parallel over key blocks for dK and
-dV, one over query blocks for dQ; in bf16 wgmma fed by TMA, in fp32
-3xTF32 on ``mma.sync``; no atomics, so the gradient is the same bits on
-every run) for tensors on a CUDA device, and takes the plain version,
+dV, one over query blocks for dQ; wgmma fed by TMA in both dtypes, in
+fp32 with each operand as three bf16 parts, written once by a pass of
+their own, and each product as six bf16 passes; no atomics, so the
+gradient is the same bits on every run) for tensors on a CUDA device,
+and takes the plain version,
 ``flash_attention_bwd_plain``, only for tensors on the CPU.
 Both recompute the softmax weights from the forward's log-sum-exp
 (``flash_attention_lse_plain``'s function).  The kernel is held to the
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -47,10 +49,18 @@ _ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + \
 #: u = 2^-8 of each term, and both versions round each gradient once to
 #: bf16; two roundings of values less than one ulp apart differ by at most
 #: one ulp (2^-7 of the value), so an element is off by at most 2^-7 + 2^-8
-#: = 1.17e-2 of its terms' magnitude.  fp32: 3xTF32 products (about 2^-21
-#: of a term) and fp32 sums of up to a few thousand terms in another order
-#: than the plain version's, a few 1e-6 of the terms' magnitude.
+#: = 1.17e-2 of its terms' magnitude.  fp32: each operand as three bf16
+#: parts (x to 2^-27 of itself) and each product as the six passes whose
+#: order stays above 2^-24 (about 2^-24 of a term), P from ``ex2.approx``
+#: (2^-22), fp32 sums of up to a few thousand terms in another order than
+#: the plain version's, each tile's product in a fresh accumulator: a few
+#: 1e-6 of the terms' magnitude.
 ATOL = {torch.float32: 5e-5, torch.bfloat16: 1.5e-2}
+#: the kernel's launches in one call, in order, by dtype: pass 1 (D),
+#: in fp32 pass 1b (the operands' bf16 parts) before it, then dK/dV and dQ
+LAUNCHES = {torch.bfloat16: ("dsum_kernel", "dkdv_kernel", "dq_kernel"),
+            torch.float32: ("split3_kernel", "dsum_kernel", "dkdv_kernel",
+                            "dq_kernel")}
 #: the kernel's scratch holds pass 1's rows (lse in log2 units and D) for
 #: sq rounded up to a multiple of this (the bf16 route's query block)
 ROW_PAD = 128
@@ -58,6 +68,23 @@ ROW_PAD = 128
 #: scale, so that a product that underflows in one version and not the
 #: other (a term of a few 1e-38) is no error
 SCALE_FLOOR = 1e-6
+
+
+def fp32_tile(d: int) -> int:
+    """Rows of the fp32 route's streamed tiles at head dim ``d``: query
+    tiles of the dK/dV pass, key tiles of the dQ pass (``kTileF128`` at
+    d 128, ``kTileF`` below)."""
+    return 32 if d == 128 else 64
+
+
+def scratch_parts(shape, dtype) -> int:
+    """fp32 values of the scratch that the fp32 route's bf16 parts of q,
+    do, k and v take (three bf16 values an element, two to an fp32
+    value); none in bf16."""
+    if dtype != torch.float32:
+        return 0
+    b, h, hkv, sq, sk, d = shape
+    return 3 * (b * h * sq + b * hkv * sk) * d
 
 
 def flops(shape, causal: bool = True) -> int:
@@ -198,17 +225,9 @@ def _meta_sharded(q, k, v, o, lse, do, causal: bool):
                        split.q), (split.q, split.dkv, split.dkv))
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, causal: bool = True
-                        ) -> Tuple[torch.Tensor, torch.Tensor,
-                                   torch.Tensor]:
-    """``flash_attention_bwd_plain``'s function; on a CUDA device, one
-    call of the hand-written kernel's three launches (counted once, on
-    ``flash_attention_bwd.launches``); on the meta device, empty
-    gradients and the call's count.  The gradients have their inputs'
-    layouts.  Outside the forward's domain (dtype, head dim, GQA
-    grouping, devices) it raises."""
+def _check_bwd(q, k, v, o, lse, do) -> None:
+    """Raises outside the forward's domain (dtype, GQA grouping, shapes,
+    devices)."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -224,15 +243,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device:
             raise ValueError(f"flash_attention_bwd: q on {q.device}, {name} "
                              f"on {t.device}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    if q.device.type == "meta":
-        if is_sharded(q):
-            return _meta_sharded(q, k, v, o, lse, do, causal)
-        return _meta(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd: no kernel for device "
-                         f"{q.device}")
+
+
+def _launch(q, k, v, o, lse, do, causal: bool, ms=None):
+    """One call of the kernel's launches on q's CUDA device (counted
+    once); ``ms``: None, or a ctypes array of four floats that the timed
+    entry fills with each launch's device ms (``LAUNCHES``' order)."""
+    b, h, sq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {d} not in "
                          f"{HEAD_DIMS}")
@@ -242,23 +259,72 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
-    # pass 1's rows, padded to 128 a (b, h): lse in log2 units, then D
+    # pass 1's rows, padded to 128 a (b, h): lse in log2 units, then D;
+    # in fp32 then q, do, k and v as three bf16 parts each
     sq_pad = -(-sq // ROW_PAD) * ROW_PAD
-    dsum = torch.empty(2 * b * h * sq_pad, dtype=torch.float32,
-                       device=q.device)
+    dsum = torch.empty(2 * b * h * sq_pad + scratch_parts(
+        (b, h, hkv, sq, sk, d), q.dtype), dtype=torch.float32,
+        device=q.device)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
                                       for s in t.stride()[:3]))
-    fn = build.function("flash_attention_bwd", "repro_flash_attention_bwd",
-                        _ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dsum.data_ptr(), b, h, hkv, sq, sk, d,
+            int(causal), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream]
+    if ms is None:
+        fn = build.function("flash_attention_bwd",
+                            "repro_flash_attention_bwd", _ARGTYPES)
+    else:
+        fn = build.function("flash_attention_bwd",
+                            "repro_flash_attention_bwd_timed",
+                            _ARGTYPES + (ctypes.c_void_p,))
+        args.append(ctypes.addressof(ms))
     _COUNTER.launches += 1
-    build.check("flash_attention_bwd", fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dsum.data_ptr(), b, h, hkv, sq, sk, d, int(causal),
-        1.0 / math.sqrt(d), _DTYPES[q.dtype], ctypes.addressof(strides),
-        stream))
+    build.check("flash_attention_bwd", fn(*args))
     return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """``flash_attention_bwd_plain``'s function; on a CUDA device, one
+    call of the hand-written kernel's launches (``LAUNCHES``; counted
+    once, on ``flash_attention_bwd.launches``); on the meta device,
+    empty gradients and the call's count.  The gradients have their
+    inputs' layouts.  Outside the forward's domain (dtype, head dim, GQA
+    grouping, devices) it raises."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    if q.device.type == "meta":
+        if is_sharded(q):
+            return _meta_sharded(q, k, v, o, lse, do, causal)
+        return _meta(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    return _launch(q, k, v, o, lse, do, causal)
+
+
+def flash_attention_bwd_launch_ms(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = True) -> Dict[str, float]:
+    """The device ms of each of the kernel's launches (``LAUNCHES``) in
+    one call on these inputs, from CUDA events recorded around each on
+    the stream (the call counts as a launch).  For measurement; CUDA
+    tensors only."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_launch_ms: no kernel for "
+                         f"device {q.device}")
+    ms = (ctypes.c_float * 4)()
+    _launch(q, k, v, o, lse, do, causal, ms)
+    return dict(zip(LAUNCHES[q.dtype], map(float, ms)))
 
 
 flash_attention_bwd.launches = 0

@@ -1056,6 +1056,31 @@ def test_flash_attention_bwd_empty_batch_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_bwd_launch_split_on_card(cuda_device, dtype):
+    """The timed entry gives the device ms of each of the route's
+    launches (fp32 four, bf16 three), positive and summing to no more than
+    the call's wall time, and counts as one launch."""
+    import time
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import _launch
+    from repro_torch.kernels.flash_attention_bwd import (
+        LAUNCHES, flash_attention_bwd_launch_ms)
+    q, k, v, do = _bwd_inputs((2, 4, 2, 256, 256, 128), dtype, cuda_device)
+    o, lse, _ = _launch(q, k, v, True, with_lse=True)
+    flash_attention_bwd(q, k, v, o, lse, do)       # built and warm
+    torch.cuda.synchronize()
+    b0 = flash_attention_bwd.launches
+    t0 = time.perf_counter()
+    ms = flash_attention_bwd_launch_ms(q, k, v, o, lse, do)
+    wall = (time.perf_counter() - t0) * 1e3
+    assert flash_attention_bwd.launches == b0 + 1
+    assert tuple(ms) == LAUNCHES[dtype] and all(x > 0 for x in ms.values())
+    assert sum(ms.values()) <= wall
+
+
+@pytest.mark.cuda
 def test_flash_attention_under_autograd_on_card(cuda_device):
     """Inputs that require a gradient take ``FlashAttention``: an output
     with a ``grad_fn``, one forward and one backward launch, gradients of

@@ -27,7 +27,7 @@ from repro_torch.kernels import (FlashAttention, flash_attention,
                                  flash_attention_lse_plain,
                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention_bwd import (
-    ATOL, bwd_err, flash_attention_bwd_scale)
+    ATOL, bwd_err, flash_attention_bwd_scale, fp32_tile)
 
 TOL = 1e-5
 #: (b, h, hkv, sq, sk, d): GQA 4:2, MHA, sq != sk with ragged lengths
@@ -217,6 +217,146 @@ def test_dropped_keys_fail_the_bf16_hold(shape, causal, dropped):
     err = bwd_err((dq, torch.nn.functional.pad(dk, pad),
                    torch.nn.functional.pad(dv, pad)), want, scale)
     assert err > 10 * ATOL[torch.bfloat16], err
+
+
+#: the fp32 route's tiles, read from its source (namespace bf16x3): work
+#: items of kItem keys (dK and dV) or queries (dQ); streamed tiles of
+#: kTileF128 rows at d 128 and kTileF below (query tiles of dK and dV, key
+#: tiles of dQ)
+F32_ITEM, F32_TILE, F32_TILE128 = (_constant("kItem"), _constant("kTileF"),
+                                   _constant("kTileF128"))
+
+
+def _parts3(x):
+    """fp32 ``x`` as the fp32 route's three bf16 parts (as fp32 values):
+    p0 = bf16(x), p1 = bf16(x - p0), p2 = bf16(x - p0 - p1), each
+    remainder exact in fp32, each rounding to nearest even."""
+    p0 = x.bfloat16().float()
+    r = x - p0
+    p1 = r.bfloat16().float()
+    return p0, p1, (r - p1).bfloat16().float()
+
+
+#: the route's six passes of a product of three-part operands, by A part
+#: and small terms first: (A part, B part)
+PASSES3 = ((2, 0), (1, 1), (1, 0), (0, 2), (0, 1), (0, 0))
+
+
+def _mm3(eq, a, b, passes=PASSES3):
+    """``einsum(eq, a, b)`` as the fp32 route takes it: both operands as
+    three bf16 parts, the six passes summed in fp32 in the route's order
+    (a1 b2, a2 b1 and a2 b2 dropped); or only ``passes``."""
+    pa, pb = _parts3(a), _parts3(b)
+    out = None
+    for i, j in passes:
+        term = torch.einsum(eq, pa[i], pb[j])
+        out = term if out is None else out + term
+    return out
+
+
+def _bwd_fp32_emulated(q, k, v, o, lse, do, causal, passes=PASSES3):
+    """The fp32 kernel's arithmetic on the CPU: every product (S, dP, dV,
+    dK, dQ) on three bf16 parts an operand (``_mm3``); dK and dV summed
+    over the group's heads in order and each head's query tiles of
+    ``fp32_tile(d)`` in order, each tile's product in a fresh fp32
+    accumulator added to the running sum; dQ over key tiles of
+    ``fp32_tile(d)``, tile t into consumer t % 2's running sum (each tile
+    fresh), then consumer 0's sum plus consumer 1's.  ``passes``: those
+    of each product (``_mm3``)."""
+    def mm(eq, a, b):
+        return _mm3(eq, a, b, passes)
+
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    tile = F32_TILE128 if d == 128 else F32_TILE
+    qf = q.reshape(b, hkv, g, sq, d).float()
+    dof = do.reshape(b, hkv, g, sq, d).float()
+    kf, vf = k.float(), v.float()
+    p = torch.exp(mm("bkgqd,bksd->bkgqs", qf, kf) * scale
+                  - lse.reshape(b, hkv, g, sq, 1))
+    if causal:
+        p = torch.where(torch.arange(sq)[:, None] >= torch.arange(sk), p,
+                        0.0)
+    dsum = (dof * o.reshape(b, hkv, g, sq, d).float()).sum(-1, keepdim=True)
+    ds = p * (mm("bkgqd,bksd->bkgqs", dof, vf) - dsum)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for head in range(g):
+        for i0 in range(0, sq, tile):
+            t = slice(i0, i0 + tile)
+            dv += mm("bkqs,bkqd->bksd", p[:, :, head, t],
+                       dof[:, :, head, t])
+            dk += mm("bkqs,bkqd->bksd", ds[:, :, head, t],
+                       qf[:, :, head, t])
+    dq = [torch.zeros_like(qf), torch.zeros_like(qf)]
+    for n, j0 in enumerate(range(0, sk, tile)):
+        t = slice(j0, j0 + tile)
+        dq[n % 2] += mm("bkgqs,bksd->bkgqd", ds[..., t], kf[:, :, t])
+    return ((dq[0] + dq[1]).reshape(b, h, sq, d) * scale, dk * scale, dv)
+
+
+def _fp32_case(shape, causal, seed):
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(shape, seed=seed))
+    lse = flash_attention_lse_plain(q, k, v, causal)
+    o = flash_attention_plain(q, k, v, causal)
+    args = (q, k, v, o, lse, do, causal)
+    return args, flash_attention_bwd_plain(*args), \
+        flash_attention_bwd_scale(*args)
+
+
+def test_fp32_tiles_match_the_source():
+    """The wrapper's name for the fp32 route's key tile (chip_smoke's
+    planted fault drops it) is the source's constant at each head dim."""
+    assert (fp32_tile(128), fp32_tile(64), fp32_tile(32)) == \
+        (F32_TILE128, F32_TILE, F32_TILE)
+
+
+@pytest.mark.parametrize("shape,causal",
+                         HOLD_CASES + [(c, causal) for c in CASES
+                                       for causal in (True, False)],
+                         ids=str)
+def test_fp32_kernel_arithmetic_within_atol(shape, causal):
+    """The fp32 kernel's arithmetic (``_bwd_fp32_emulated``: three bf16
+    parts an operand, six passes a product, its tiles and fresh
+    accumulators) stays inside ATOL of each element's terms, far inside
+    (3xTF32 leaves about 2^-21 of a term, these parts about 2^-24); the
+    measure sees it (not 0)."""
+    for seed in range(2):
+        args, want, scale = _fp32_case(shape, causal, seed)
+        got = _bwd_fp32_emulated(*args)
+        assert all(g.dtype == torch.float32 for g in got)
+        err = bwd_err(got, want, scale)
+        assert 0.0 < err <= ATOL[torch.float32] / 10, (seed, err)
+
+
+def test_one_bf16_part_misses_the_fp32_atol():
+    """Why parts: the same arithmetic on one bf16 part an operand (one
+    pass a product) misses ATOL[float32] by far."""
+    shape, causal = HOLD_CASES[2]
+    args, want, scale = _fp32_case(shape, causal, seed=0)
+    err = bwd_err(_bwd_fp32_emulated(*args, passes=((0, 0),)), want, scale)
+    assert err > 10 * ATOL[torch.float32], err
+
+
+@pytest.mark.parametrize("dropped", ["tile", "item", 8])
+@pytest.mark.parametrize("shape,causal", HOLD_CASES, ids=str)
+def test_dropped_keys_fail_the_fp32_hold(shape, causal, dropped):
+    """A backward that stops early by the fp32 route's last key tile of
+    its dQ pass (``fp32_tile``), its last 64-key dK/dV item or the last 8
+    keys fails the fp32 hold by far, also where those keys carry the
+    smallest gradients (causal, sq = sk)."""
+    args, want, scale = _fp32_case(shape, causal, seed=0)
+    q, k, v, o, lse, do, _ = args
+    n = {"tile": fp32_tile(q.shape[-1]), "item": F32_ITEM}.get(dropped,
+                                                              dropped)
+    sk = k.shape[2] - n
+    dq, dk, dv = _bwd_fp32_emulated(q, k[:, :, :sk], v[:, :, :sk], o, lse,
+                                    do, causal)
+    pad = (0, 0, 0, n)
+    err = bwd_err((dq, torch.nn.functional.pad(dk, pad),
+                   torch.nn.functional.pad(dv, pad)), want, scale)
+    assert err > 10 * ATOL[torch.float32], err
 
 
 def test_bwd_err_measure():
